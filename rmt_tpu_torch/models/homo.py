@@ -1,0 +1,326 @@
+# Pseudo-homogeneous packed-bed reactor, dynamic model N2 (port of the N2
+# slice of rmt_tpu/models/homo.py), dimensionless formulation, as plain
+# functions on tensors.
+#
+# Same math as the reference's modelEquationN2 (PyREMOT/docs/
+# pbHomoReactor.py:3706-4134): the per-node python loop becomes tensor
+# stencils, the explicit axial pressure march a closed-form affine
+# recurrence, and the user's kinetics DSL runs on all axial nodes at once.
+# Deliberate quirk-for-quirk reproductions are marked QUIRK with the
+# reference line they mirror. Functions take ONE member (state (n,)); the
+# ensemble driver maps them over members with torch.func.vmap.
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .. import config
+from ..constants import EPS_CONST, PI_CONST, R_CONST, Tref
+from ..data import species as DB
+from ..kinetics.dsl import RateProgram
+from ..kinetics.stoich import Stoichiometry
+from ..ops import df32 as _df32
+from ..props import thermo, transport
+
+ISO_THERMAL = "iso-thermal"
+
+
+@dataclass(frozen=True)
+class HomoSpec:
+    """Static description of a homogeneous reactor model."""
+
+    comp_list: tuple[str, ...]
+    iso_thermal: bool
+    stoich: Stoichiometry = field(hash=False, compare=False)
+    rates: RateProgram = field(hash=False, compare=False)
+    z_no: int = 20          # N2 axial nodes
+    t_no: int = 5           # N2 outer time intervals
+
+    @property
+    def n_comp(self) -> int:
+        return len(self.comp_list)
+
+    @property
+    def comp_idx(self) -> np.ndarray:
+        return DB.species_indices(self.comp_list)
+
+    @property
+    def var_no_n2(self) -> int:
+        return self.n_comp + (0 if self.iso_thermal else 1)
+
+
+def build_spec(model_input: Mapping[str, Any], **solver_overrides) -> HomoSpec:
+    comp_list = tuple(model_input["feed"]["components"]["shell"])
+    process_type = model_input["operating-conditions"].get(
+        "process-type", ISO_THERMAL)
+    stoich = Stoichiometry(model_input["reactions"], comp_list)
+    rates = RateProgram(
+        model_input["reaction-rates"]["VARS"],
+        model_input["reaction-rates"]["RATES"],
+    )
+    return HomoSpec(
+        comp_list=comp_list,
+        iso_thermal=(process_type == ISO_THERMAL),
+        stoich=stoich,
+        rates=rates,
+        **solver_overrides,
+    )
+
+
+def build_params(model_input: Mapping[str, Any], dtype=None,
+                 device=None) -> dict[str, Any]:
+    """Numeric parameter dict of tensors (every leaf may be swept)."""
+    dtype = dtype or config.default_float()
+    device = device or config.default_device()
+    oc = model_input["operating-conditions"]
+    feed = model_input["feed"]
+    re_spec = model_input["reactor"]
+    ex_he = model_input.get(
+        "external-heat", {"OvHeTrCo": 0.0, "EfHeTrAr": 0.0, "MeTe": 0.0})
+
+    def f(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
+                               device=device)
+
+    return {
+        "P0": f(oc["pressure"]),
+        "T0": f(oc["temperature"]),
+        "opT": f(oc.get("period", 1.0)),
+        "VoFlRa0": f(feed["volumetric-flowrate"]),
+        "SpCoi0": f(feed["concentration"]),
+        "U": f(ex_he["OvHeTrCo"]),
+        "Tm": f(ex_he["MeTe"]),
+        "ReInDi": f(re_spec["ReInDi"]),
+        "ReLe": f(re_spec["ReLe"]),
+        "PaDi": f(re_spec["PaDi"]),
+        "BeVoFr": f(re_spec["BeVoFr"]),
+        "CaBeDe": f(re_spec["CaBeDe"]),
+        "kinetic_overrides": {
+            k: f(v) for k, v in model_input.get("kinetic-overrides", {}).items()
+        },
+    }
+
+
+def feed_state(spec: HomoSpec, p: Mapping[str, Any]) -> dict[str, Any]:
+    """Inlet/feed-derived reference scales (pbHomoReactor.py:2744-2827)."""
+    idx = spec.comp_idx
+    T0 = p["T0"]
+    mw = torch.as_tensor(DB.MW[idx], dtype=T0.dtype, device=T0.device)
+
+    cr_se_ar = PI_CONST * p["ReInDi"] ** 2 / 4
+    sp_coi0 = p["SpCoi0"]
+    sp_co0 = torch.sum(sp_coi0)
+    su_ga_ve0 = p["VoFlRa0"] / cr_se_ar
+    in_ga_ve0 = p["VoFlRa0"] / (cr_se_ar * p["BeVoFr"])
+    mo_fri0 = sp_coi0 / sp_co0
+
+    ga_vii0 = transport.viscosity(T0, idx)
+    ga_mi_vi = transport.wilke_mixture(ga_vii0, mo_fri0, mw)
+
+    cp_mean0 = thermo.cp_mean(T0, idx)                  # [kJ/kmol.K]
+    cp_mix0 = thermo.cp_mix(mo_fri0, cp_mean0)
+    mi_mo_we0 = thermo.mixture_molecular_weight(mo_fri0, mw, "kg/mol")
+    ga_de0 = thermo.density_ig(mi_mo_we0, sp_co0)
+
+    # QUIRK: MODEL_SETTING['GaMaCoTe0'] == "MAX" -- the mass convective
+    # reference scale uses max(Cif) for every species, and dimensionless
+    # concentrations are y_i = C_i / max(C_f) (modelSetting.py:17,
+    # pbHomoReactor.py:2819-2821,2833)
+    c_max = torch.max(sp_coi0)
+    vf = su_ga_ve0
+    zf = p["ReLe"]
+    ga_ma_co_te0 = (vf / zf) * c_max
+    ga_he_co_te0 = ga_de0 * vf * T0 * (cp_mix0 / mi_mo_we0) / zf
+
+    # QUIRK: the heat-exchange area term is always 4/ReInDi, the user's
+    # EfHeTrAr input is ignored (pbHomoReactor.py:2778,3411)
+    a_eff = 4 / p["ReInDi"]
+
+    return {
+        "mw": mw,
+        "CrSeAr": cr_se_ar,
+        "SpCo0": sp_co0,
+        "SuGaVe0": su_ga_ve0,
+        "InGaVe0": in_ga_ve0,
+        "MoFri0": mo_fri0,
+        "GaMiVi": ga_mi_vi,
+        "GaCpMeanMix0": cp_mix0,
+        "MiMoWe0": mi_mo_we0,
+        "GaDe0": ga_de0,
+        "Cmax": c_max,
+        "vf": vf,
+        "zf": zf,
+        "GaMaCoTe0": ga_ma_co_te0,
+        "GaHeCoTe0": ga_he_co_te0,
+        "aEff": a_eff,
+    }
+
+
+def _heat_exchange(Tm, T, U, a):
+    """Qm [J/m^3.s]; Tm == 0 means adiabatic (rmtUtility.py:437-444)."""
+    return torch.where(Tm == 0, torch.zeros_like(T), U * a * (Tm - T))
+
+
+def _reaction_energetics(spec: HomoSpec, T_real):
+    """Heat of reaction at T [kJ/kmol] per reaction (rmtThermo.py:258-312).
+    T_real (zNo,) -> (zNo, n_rxn)."""
+    st = spec.stoich
+    eq_cp_mean = thermo.cp_mean(T_real, st.eq_idx)      # (z, n_eq)
+    eq_nu = torch.as_tensor(st.eq_nu, dtype=T_real.dtype,
+                            device=T_real.device)
+    en_ch = (eq_cp_mean @ eq_nu.T) * (T_real[..., None] - Tref)
+    return en_ch + torch.as_tensor(st.dh_rxn_25, dtype=T_real.dtype,
+                                   device=T_real.device)
+
+
+def n2_initial_state(spec: HomoSpec, p, d):
+    c0 = (p["SpCoi0"] / d["Cmax"])[:, None] * torch.ones(
+        (1, spec.z_no), dtype=p["SpCoi0"].dtype, device=p["SpCoi0"].device)
+    rows = [c0]
+    if not spec.iso_thermal:
+        rows.append(torch.zeros_like(c0[:1]))
+    return torch.cat(rows, dim=0).reshape(-1)
+
+
+def make_n2_rhs(spec: HomoSpec, frozen_pressure_jac: bool = False,
+                accurate_rates=False):
+    """RHS of the dynamic model for one member: rhs(t, y (n,), p, d).
+
+    frozen_pressure_jac=True detaches the axial pressure march, making
+    the Jacobian exactly block-bidiagonal in z; use it ONLY to build the
+    stage-solve Jacobian blocks (residuals use the exact RHS).
+
+    accurate_rates="df32" evaluates the kinetics chain, the
+    stoichiometric sum nu@R and the r-weighted heat-of-reaction sum in
+    compensated double-float32 pairs (ops/df32.py). accurate_rates=False
+    evaluates everything in the dtype of the state (f32 or f64).
+    """
+    if accurate_rates not in (False, "df32"):
+        raise NotImplementedError(
+            "the port supports accurate_rates False or 'df32'")
+    idx = spec.comp_idx
+    n_comp = spec.n_comp
+    z_no = spec.z_no
+    var_no = spec.var_no_n2
+    dz = 1.0 / (z_no - 1)
+    df32_mode = accurate_rates == "df32"
+
+    def rhs(t, y, p, d):
+        Y = y.reshape(var_no, z_no)
+        c_raw = Y[:n_comp]                              # (n_comp, zNo)
+        # QUIRK: concentrations are clamped at EPS for the source/kinetics
+        # path but the *raw* center value feeds the convection stencil
+        # (pbHomoReactor.py:3899 vs 4086)
+        c_clamped = torch.clamp(c_raw, min=EPS_CONST)
+        T_dl = Y[n_comp] if not spec.iso_thermal else torch.zeros_like(Y[0])
+        nu_comp = torch.as_tensor(spec.stoich.nu_comp, dtype=y.dtype,
+                                  device=y.device)
+
+        co_spi_re = c_clamped * d["Cmax"]
+        T_re = T_dl * p["T0"] + p["T0"]
+        mo_fri = co_spi_re / torch.sum(co_spi_re, dim=0, keepdim=True)
+        mi_mo_we = thermo.mixture_molecular_weight(mo_fri.T, d["mw"],
+                                                   "kg/mol")
+
+        # frozen-velocity assumption: v_z[z+1] = v_z[z] = SuGaVe0
+        # (QUIRK, pbHomoReactor.py:4066)
+        su_ga_ve = d["SuGaVe0"]
+        v_dl = su_ga_ve / d["vf"]
+        in_ga_ve_dl = (su_ga_ve / p["BeVoFr"]) / d["InGaVe0"]
+
+        # explicit axial pressure march (QUIRK: an algebraic forward-Euler
+        # update inside the RHS, pbHomoReactor.py:3970-3979), solved in
+        # closed form: P_{z+1} = a_z*P_z + b
+        eps = p["BeVoFr"]
+        erg_a = 150 * d["GaMiVi"] * su_ga_ve / p["PaDi"] ** 2
+        erg_b = (1 - eps) ** 2 / eps**3
+        erg_c_coef = 1.75 * su_ga_ve**2 / p["PaDi"]
+        erg_d = (1 - eps) / eps**3
+        rg_t = (R_CONST / mi_mo_we) * T_re              # (zNo,)
+        if frozen_pressure_jac:
+            rg_t = rg_t.detach()
+
+        a_co = 1.0 - (erg_c_coef * erg_d / rg_t) * dz
+        b_co = -(erg_a * erg_b) * dz
+        A_cum = torch.cat([torch.ones_like(a_co[:1]),
+                           torch.cumprod(a_co[:-1], dim=0)])
+        D = b_co / (A_cum * a_co)
+        S = torch.cat([torch.zeros_like(a_co[:1]),
+                       torch.cumsum(D[:-1], dim=0)])
+        P_z = A_cum * (p["P0"] + S)
+
+        ga_de_eos = P_z / rg_t
+        ga_de_dl = ga_de_eos / d["GaDe0"]
+
+        ko = p["kinetic_overrides"]
+        if df32_mode:
+            DF = _df32.DF32.from_value
+            r0_df = spec.rates(DF(T_re), DF(P_z), DF(mo_fri), DF(co_spi_re),
+                               ko)                      # DF32 (n_rxn, zNo)
+            nu32 = nu_comp.to(torch.float32)
+            ri_df = None                                # nu^T @ r0, pairs
+            for m in range(nu32.shape[0]):
+                term = r0_df[m] * nu32[m][:, None]      # DF32 (n_comp, zNo)
+                ri_df = term if ri_df is None else ri_df + term
+            ri = ri_df.value(y.dtype)
+        else:
+            r0 = spec.rates(T_re, P_z, mo_fri, co_spi_re, ko)  # (n_rxn, z)
+            ri = torch.einsum("mk,mz->kz", nu_comp, r0.to(y.dtype))
+
+        cp_mean_i = thermo.cp_mean(T_re, idx)           # (zNo, n_comp)
+        cp_mix = torch.sum(mo_fri.T * cp_mean_i, dim=-1)
+        cp_mix_dl = cp_mix / d["GaCpMeanMix0"]
+        cp_mix_eff_dl = cp_mix_dl * eps
+        he_re_t = _reaction_energetics(spec, T_re)      # (zNo, n_rxn)
+        if df32_mode:
+            # energetics stay plain f32; the r0-weighted sum keeps the
+            # rate pairs so no re-rounding enters
+            he32 = he_re_t.to(torch.float32)
+            ov_df = None
+            for m in range(nu32.shape[0]):
+                term = r0_df[m] * he32[:, m]
+                ov_df = term if ov_df is None else ov_df + term
+            ov_he_re_t = ov_df.value(y.dtype)
+        else:
+            ov_he_re_t = torch.sum(r0.to(y.dtype).T * he_re_t, dim=-1)
+        qm = _heat_exchange(p["Tm"], T_re, p["U"], d["aEff"])
+
+        const_f1 = 1 / (eps * (d["zf"] / d["vf"]))
+        const_t2 = 1 / (ga_de_dl * cp_mix_dl * eps * (d["zf"] / d["vf"]))
+
+        # backward-difference convection with inlet BC1
+        # (pbHomoReactor.py:4082-4099)
+        c_in = (p["SpCoi0"] / d["Cmax"])[:, None]
+        c_back = torch.cat([c_in, c_clamped[:, :-1]], dim=1)
+        dcdz = (c_raw - c_back) / dz
+        dxdt_c = const_f1 * (-v_dl * dcdz + ri / d["GaMaCoTe0"])
+
+        rows = [dxdt_c]
+        if not spec.iso_thermal:
+            t_back = torch.cat([torch.zeros_like(T_dl[:1]), T_dl[:-1]])
+            dtdz = (T_dl - t_back) / dz
+            convective = -in_ga_ve_dl * ga_de_dl * cp_mix_eff_dl * dtdz
+            formation = -ov_he_re_t / d["GaHeCoTe0"]
+            exchange = qm / d["GaHeCoTe0"]
+            dxdt_t = const_t2 * (convective + formation + exchange)
+            rows.append(dxdt_t[None])
+
+        return torch.cat(rows, dim=0).reshape(-1)
+
+    return rhs
+
+
+def make_n2_bidiag_blocks(spec: HomoSpec):
+    """Per-member (Jd, Jl) block Jacobian of the N2 RHS, each
+    (z_no, var_no, var_no), gathered from 2*var_no colored JVPs
+    (ops.jacobian.colored_bidiag_blocks) of the frozen-pressure RHS."""
+    from ..ops.jacobian import colored_bidiag_blocks
+
+    return colored_bidiag_blocks(
+        make_n2_rhs(spec, frozen_pressure_jac=True), spec.var_no_n2,
+        spec.z_no
+    )

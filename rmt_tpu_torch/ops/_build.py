@@ -1,0 +1,101 @@
+# Builds the port's CUDA kernels with nvcc at first use and loads them
+# with ctypes (route (b): a shared library with a plain C interface, no
+# PyTorch headers, so a build takes seconds).
+#
+# Each library is keyed by a hash of its full source text and flags and
+# built into the build directory (RMT_TORCH_BUILD_DIR, default build/ at
+# the repository root, which git ignores). A source that is already built
+# is loaded as it is. Nothing here runs at import time.
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # every product and sum rounds on its own, as in the plain-PyTorch
+    # twins (and as the df32 error-free transforms require)
+    "-fmad=false",
+    "-Xptxas", "-v",
+)
+
+_loaded: dict[Path, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    d = os.environ.get("RMT_TORCH_BUILD_DIR")
+    return Path(d) if d else CSRC.parent.parent / "build"
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str, source: str) -> Path:
+    key = hashlib.sha256(
+        (source + "\0" + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:16]
+    return build_dir() / f"{name}-{key}.so"
+
+
+def compile_sources(jobs) -> list[Path]:
+    """Build every (name, source_text) job that is not built yet, all
+    nvcc processes started together. Returns the library paths; raises
+    with the compiler's output if any build fails. Each build's compiler
+    report (registers, spills) is kept beside its library as .log."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    paths, running = [], []
+    for name, source in jobs:
+        lib = library_path(name, source)
+        paths.append(lib)
+        if lib.exists():
+            continue
+        src = lib.with_suffix(".cu")
+        src.write_text(source)
+        fd, tmp = tempfile.mkstemp(dir=out, suffix=".so")
+        os.close(fd)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((lib, tmp, proc))
+    failures = []
+    for lib, tmp, proc in running:
+        log, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"{lib.name}:\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return paths
+
+
+def load(name: str, source: str) -> ctypes.CDLL:
+    """The library built from ``source``, building it first if needed."""
+    lib = library_path(name, source)
+    if lib not in _loaded:
+        compile_sources([(name, source)])
+        _loaded[lib] = ctypes.CDLL(str(lib))
+    return _loaded[lib]
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")

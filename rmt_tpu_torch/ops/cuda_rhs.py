@@ -1,0 +1,812 @@
+# Fused N2 RHS (port of rmt_tpu/ops/pallas_rhs.py): one whole evaluation
+# of the N2 dynamic RHS per member row, as ONE CUDA kernel generated per
+# chemistry, beside its plain-PyTorch twin.
+#
+# The kernel covers what the TPU kernel covers: EPS clamps;
+# concentrations, mole fractions and molecular weight; the closed-form
+# Ergun pressure march; the user's DSL kinetics; nu-weighted formation
+# rates; mixture Cp; heat of reaction; the Tm == 0 adiabatic rule; and
+# backward-difference convection with the inlet BC (modelEquationN2
+# semantics, QUIRKs included, pbHomoReactor.py:3706-4134). Two modes:
+# plain f32, and df32 (kinetics, nu@R and the heat-of-reaction sum in
+# compensated pairs, ops/df32.py).
+#
+# The chemistry is the user's, so the kernel source is GENERATED: the
+# DSL program (RateProgram.call_list) is traced with symbolic values
+# through the same math shim the tensor path uses, which records the
+# expression DAG of the VARS/RATES program; the DAG is emitted as one
+# __device__ function per mode, with the Python-level dispatch of every
+# operation reproduced exactly (the DF32 operator that Python would pick,
+# Python float constants split hi/lo as DF32.from_value does). A program
+# the generator cannot express raises; there is no fallback.
+#
+# Layouts: the wrapper takes y (M, n) with M = s*B rows (s = 3 for the
+# stage-stacked form, stage-major: member = row % B) and the parameters
+# packed member-last by pack_leaves; it transposes y to the member-last
+# (var, z, M) layout the kernel reads, so a warp's loads are neighbouring
+# floats, and transposes the result back.
+#
+# Replaces the TPU kernel rmt_tpu/ops/pallas_rhs.py::build_n2_fused
+# (rhs_f, _n2_core_ml, _shift_down, _prefix_prod_excl, _prefix_sum_excl).
+# One thread per (row, node): a block is 16 rows x 20 nodes. What bounds
+# it on an H100: arithmetic issue, not bytes -- a row reads and writes
+# 140 floats but each node thread runs the whole kinetics chain, which
+# the df32 mode expands ~10-20x into error-free-transform instructions
+# (92 registers a thread in df32 mode, 76 plain, no spills; that caps
+# residency at two 320-thread blocks an SM). The design keeps every
+# intermediate in registers and the chain fully inlined; the pressure
+# march (a prefix product and sum over the nodes) shares the nodes'
+# a_z factors through shared memory and runs as a short sequential loop
+# in each thread instead of the TPU's Hillis-Steele doubling. Splitting
+# the chain across threads, or fusing the layout transposes into the
+# kernel, is the redesign a later change should measure.
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math as _math
+import operator
+
+import numpy as np
+import torch
+
+from ..constants import EPS_CONST, R_CONST, Tref
+from ..data import species as DB
+from ..kinetics.dsl import _MATH_SHIM
+from . import _build
+from . import df32 as _df32
+from .df32 import f32c
+
+LAUNCHES = {"n2_rhs_df32": 0, "n2_rhs_plain": 0}
+
+# parameter leaves the N2 core reads, in fixed packing order
+_P_1D = ("T0", "BeVoFr", "PaDi", "P0", "Tm", "U")
+_D_1D = ("Cmax", "SuGaVe0", "vf", "zf", "InGaVe0", "GaMiVi", "GaDe0",
+         "GaCpMeanMix0", "GaMaCoTe0", "GaHeCoTe0", "aEff")
+
+_f32 = torch.float32
+# members per thread block; a block is (_MT members) x (z nodes) threads
+_MT = 16
+
+
+def pack_leaves(p, d, ko_keys=()):
+    """Pack the per-member parameters (every leaf with a leading member
+    axis: (B,) scalars, (B, n_comp) vectors) into the member-last f32
+    tensors the fused RHS reads: leaves1 (6 + 11 + n_overrides, B) and
+    leaves2 (2, n_comp, B) = [SpCoi0, mw]."""
+    rows = [p[k] for k in _P_1D] + [d[k] for k in _D_1D]
+    rows += [p["kinetic_overrides"][k] for k in ko_keys]
+    leaves1 = torch.stack([r.to(_f32) for r in rows]).contiguous()
+    leaves2 = torch.stack([p["SpCoi0"].to(_f32).T,
+                           d["mw"].to(_f32).T]).contiguous()
+    return leaves1, leaves2
+
+
+def _unpack(leaves1, leaves2, ko_keys, reps):
+    """Leaf dicts tiled to the M = reps*B rows (stage-major)."""
+    l1 = leaves1.repeat(1, reps) if reps > 1 else leaves1
+    l2 = leaves2.repeat(1, 1, reps) if reps > 1 else leaves2
+    it = iter(l1)
+    p = {k: next(it) for k in _P_1D}
+    d = {k: next(it) for k in _D_1D}
+    p["kinetic_overrides"] = {k: next(it) for k in ko_keys}
+    p["SpCoi0"], d["mw"] = l2[0], l2[1]
+    return p, d
+
+
+class _Consts:
+    """The f32 constants of one spec, shared by the twin and the kernel
+    generator (Python floats holding exact f32 values)."""
+
+    def __init__(self, spec):
+        f = np.float32
+        self.dz = f(1.0 / (spec.z_no - 1))
+        self.inv_dz = f(f(1.0) / self.dz)
+        self.eps_c = f(EPS_CONST)
+        self.r_const = f(R_CONST)
+        self.tref = f(Tref)
+        self.nu = np.asarray(spec.stoich.nu_comp, dtype=np.float64)
+        self.eq_nu = np.asarray(spec.stoich.eq_nu, dtype=np.float64)
+        self.dh25 = np.asarray(spec.stoich.dh_rxn_25, dtype=np.float32)
+        self.cp = np.asarray(DB.CP_COEFF[spec.comp_idx], dtype=np.float32)
+        self.cp_eq = np.asarray(DB.CP_COEFF[spec.stoich.eq_idx],
+                                dtype=np.float32)
+        # Cp at the reference temperature, in f32 arithmetic
+        self.cp_ref = [self._poly(c, self.tref) for c in self.cp]
+        self.cp_eq_ref = [self._poly(c, self.tref) for c in self.cp_eq]
+
+    @staticmethod
+    def _poly(c, T):
+        return (c[0] + c[1] * T + c[2] * T * T + c[3] * T * T * T)
+
+
+def _cp_poly(c, T):
+    """c0 + c1*T + c2*T^2 + c3*T^3 in the reference's (Horner-free) order."""
+    c0, c1, c2, c3 = (float(v) for v in c)
+    return c0 + c1 * T + c2 * T * T + c3 * T * T * T
+
+
+# -- plain-PyTorch twin ---------------------------------------------------------
+
+def n2_core_ml(spec, df32_mode: bool, Y, p, d):
+    """Member-last N2 RHS core: Y (var, z, M) -> dY/dt (var, z, M), f32.
+
+    p/d leaves are member-last: (M,) scalars, (n_comp, M) vectors. The
+    order of every operation is the kernel's (csrc is generated from the
+    same steps), including the sequential prefix loops of the pressure
+    march."""
+    n_comp, z_no = spec.n_comp, spec.z_no
+    K = _Consts(spec)
+    dz, one = float(K.dz), 1.0
+
+    c_raw = [Y[s] for s in range(n_comp)]                 # (z, M) each
+    # QUIRK: clamped for kinetics/sources, raw for convection
+    # (pbHomoReactor.py:3899 vs 4086)
+    c_cl = [torch.clamp(c, min=float(K.eps_c)) for c in c_raw]
+    T_dl = Y[n_comp] if not spec.iso_thermal else torch.zeros_like(Y[0])
+
+    co_re = [c * d["Cmax"] for c in c_cl]
+    T_re = T_dl * p["T0"] + p["T0"]
+    ctot = functools.reduce(operator.add, co_re)
+    mo_fri = [c / ctot for c in co_re]
+    mi_mo_we = functools.reduce(
+        operator.add, [mo_fri[s] * d["mw"][s] for s in range(n_comp)]
+    ) * f32c(1e-3)
+
+    # frozen-velocity assumption (QUIRK, pbHomoReactor.py:4066)
+    su_ga_ve = d["SuGaVe0"]
+    v_dl = su_ga_ve / d["vf"]
+    in_ga_ve_dl = (su_ga_ve / p["BeVoFr"]) / d["InGaVe0"]
+
+    eps = p["BeVoFr"]
+    erg_a = 150.0 * d["GaMiVi"] * su_ga_ve / (p["PaDi"] * p["PaDi"])
+    erg_b = (one - eps) * (one - eps) / (eps * eps * eps)
+    erg_c_coef = 1.75 * su_ga_ve * su_ga_ve / p["PaDi"]
+    erg_d = (one - eps) / (eps * eps * eps)
+    # R / MW as a true division (a Python number over a tensor would
+    # run as reciprocal-then-multiply, two roundings)
+    rg_t = (torch.full_like(mi_mo_we, float(K.r_const)) / mi_mo_we) * T_re
+
+    # explicit axial pressure march as the affine recurrence
+    # P_{z+1} = a_z P_z + b, in closed form (QUIRK, pbHomoReactor.py:
+    # 3970-3979): P_k = A_k (P0 + S_k), A_k = prod_{i<k} a_i,
+    # S_k = sum_{i<k} b / (A_i a_i), accumulated in node order
+    a_co = one - (erg_c_coef * erg_d / rg_t) * dz
+    b_co = -(erg_a * erg_b) * dz
+    A = torch.ones_like(b_co)
+    S = torch.zeros_like(b_co)
+    P_rows = []
+    for k in range(z_no):
+        P_rows.append(A * (p["P0"] + S))
+        S = S + b_co / (A * a_co[k])
+        A = A * a_co[k]
+    P_z = torch.stack(P_rows)
+    ga_de_dl = (P_z / rg_t) / d["GaDe0"]
+
+    ko = p["kinetic_overrides"]
+    if df32_mode:
+        DF = _df32.DF32.from_value
+        r_list = spec.rates.call_list(DF(T_re), DF(P_z),
+                                      [DF(m) for m in mo_fri],
+                                      [DF(c) for c in co_re], ko)
+        r_list = [DF(r) for r in r_list]
+    else:
+        r_list = spec.rates.call_list(T_re, P_z, mo_fri, co_re, ko)
+        r_list = [r if isinstance(r, torch.Tensor)
+                  else torch.full_like(T_re, f32c(r)) for r in r_list]
+
+    ri = []
+    for s in range(n_comp):
+        acc = None
+        for m, r_m in enumerate(r_list):
+            cmk = float(K.nu[m, s])
+            if cmk == 0.0:
+                continue
+            term = r_m * (cmk if df32_mode else f32c(cmk))
+            acc = term if acc is None else acc + term
+        if acc is None:
+            ri.append(torch.zeros_like(T_re))
+        else:
+            ri.append(acc.value() if df32_mode else acc)
+
+    # mixture heat capacity (plain f32)
+    cp_mean_i = [0.5 * (float(K.cp_ref[s]) + _cp_poly(K.cp[s], T_re))
+                 for s in range(n_comp)]
+    cp_mix = functools.reduce(
+        operator.add, [mo_fri[s] * cp_mean_i[s] for s in range(n_comp)])
+    cp_mix_dl = cp_mix / d["GaCpMeanMix0"]
+    cp_mix_eff_dl = cp_mix_dl * eps
+
+    if not spec.iso_thermal:
+        # heat of reaction at T (rmtThermo.py:258-312 semantics); the
+        # r-weighted sum keeps df32 pairs so no re-rounding enters
+        cp_mean_eq = [0.5 * (float(K.cp_eq_ref[e]) + _cp_poly(K.cp_eq[e], T_re))
+                      for e in range(len(K.cp_eq))]
+        dT = T_re - float(K.tref)
+        ov = None
+        for m, r_m in enumerate(r_list):
+            en = None
+            for e in range(len(cp_mean_eq)):
+                cme = float(K.eq_nu[m, e])
+                if cme == 0.0:
+                    continue
+                t_ = f32c(cme) * cp_mean_eq[e]
+                en = t_ if en is None else en + t_
+            dh = float(K.dh25[m])
+            he_m = en * dT + dh if en is not None else torch.full_like(dT, dh)
+            term = r_m * he_m
+            ov = term if ov is None else ov + term
+        ov_he_re_t = ov.value() if df32_mode else ov
+        # Qm with the Tm == 0 => adiabatic rule (rmtUtility.py:437-444)
+        qm = torch.where(p["Tm"] == 0.0, torch.zeros_like(T_re),
+                         p["U"] * d["aEff"] * (p["Tm"] - T_re))
+
+    const_f1 = one / (eps * (d["zf"] / d["vf"]))
+    inv_dz = float(K.inv_dz)
+    inv_gmc = one / d["GaMaCoTe0"]
+    rows = []
+    for s in range(n_comp):
+        c_in = (p["SpCoi0"][s] / d["Cmax"])[None, :]
+        c_back = torch.cat([c_in, c_cl[s][:-1]], dim=0)
+        dcdz = (c_raw[s] - c_back) * inv_dz
+        rows.append(const_f1 * (-v_dl * dcdz + ri[s] * inv_gmc))
+
+    if not spec.iso_thermal:
+        t_back = torch.cat([torch.zeros_like(T_dl[:1]), T_dl[:-1]], dim=0)
+        dtdz = (T_dl - t_back) * inv_dz
+        const_t2 = one / (ga_de_dl * cp_mix_dl * eps * (d["zf"] / d["vf"]))
+        inv_ghc = one / d["GaHeCoTe0"]
+        convective = -in_ga_ve_dl * ga_de_dl * cp_mix_eff_dl * dtdz
+        rows.append(const_t2 * (convective + (-ov_he_re_t + qm) * inv_ghc))
+
+    return torch.stack(rows, dim=0)                        # (var, z, M)
+
+
+def n2_rhs_twin(spec, df32_mode, ko_keys, y, leaves1, leaves2):
+    """The fused RHS in plain PyTorch: y (M, n) -> (M, n) f32."""
+    M = y.shape[0]
+    B = leaves1.shape[1]
+    if M % B:
+        raise ValueError(f"batch {M} not a multiple of member count {B}")
+    p, d = _unpack(leaves1, leaves2, ko_keys, M // B)
+    Y = y.to(_f32).reshape(M, spec.var_no_n2, spec.z_no).permute(1, 2, 0)
+    out = n2_core_ml(spec, df32_mode, Y, p, d)
+    return out.permute(2, 0, 1).reshape(M, -1)
+
+
+# -- the DSL recorder -----------------------------------------------------------
+
+class _Graph:
+    """Expression DAG of one traced rate program: nodes are
+    (op, args, kind) in evaluation order; args are node Syms, Python
+    numbers or None; kind is "df" (a DF32 pair) or "f" (plain f32)."""
+
+    def __init__(self):
+        self.nodes = []
+
+    def add(self, op, args, kind):
+        self.nodes.append((op, args, kind))
+        return _Sym(self, len(self.nodes) - 1, kind)
+
+
+def _number(v):
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+class _Sym:
+    """A symbolic DSL value: every operation on it records a node."""
+
+    __slots__ = ("g", "i", "kind")
+
+    def __init__(self, g, i, kind):
+        self.g, self.i, self.kind = g, i, kind
+
+    def _rec(self, op, *args):
+        for a in args:
+            if not (isinstance(a, _Sym) or _number(a) or a is None):
+                raise TypeError(
+                    f"the CUDA RHS generator cannot express {op} on "
+                    f"{type(a).__name__}")
+        kind = "df" if any(isinstance(a, _Sym) and a.kind == "df"
+                           for a in args) else "f"
+        return self.g.add(op, args, kind)
+
+    def __add__(self, o):
+        return self._rec("add", self, o)
+
+    def __radd__(self, o):
+        return self._rec("add", o, self)
+
+    def __sub__(self, o):
+        return self._rec("sub", self, o)
+
+    def __rsub__(self, o):
+        return self._rec("sub", o, self)
+
+    def __mul__(self, o):
+        return self._rec("mul", self, o)
+
+    def __rmul__(self, o):
+        return self._rec("mul", o, self)
+
+    def __truediv__(self, o):
+        return self._rec("div", self, o)
+
+    def __rtruediv__(self, o):
+        return self._rec("div", o, self)
+
+    def __pow__(self, o):
+        return self._rec("pow", self, o)
+
+    def __rpow__(self, o):
+        return self._rec("pow", o, self)
+
+    def __neg__(self):
+        return self._rec("neg", self)
+
+    def __bool__(self):
+        raise TypeError("the CUDA RHS generator cannot express control "
+                        "flow on a traced value")
+
+    @staticmethod
+    def _math_dispatch(name, *args):
+        if name not in _CALLS:
+            raise TypeError(f"the CUDA RHS generator cannot express "
+                            f"math.{name}")
+        sym = next(a for a in args if isinstance(a, _Sym))
+        return sym._rec("call:" + name, *args)
+
+
+_CALLS = ("exp", "log", "log10", "sqrt", "pow", "fabs")
+_BINARY = {"add": operator.add, "sub": operator.sub, "mul": operator.mul,
+           "div": operator.truediv, "pow": operator.pow}
+
+
+def trace_rates(spec, df32_mode: bool, ko_keys=()):
+    """Trace spec.rates.call_list with symbolic inputs. Returns
+    (graph, rates) where rates are Syms or Python numbers."""
+    g = _Graph()
+    kind = "df" if df32_mode else "f"
+    T = g.add("in", ("T",), kind)
+    P = g.add("in", ("P",), kind)
+    mofri = [g.add("in", (f"mofri{i}",), kind) for i in range(spec.n_comp)]
+    conc = [g.add("in", (f"conc{i}",), kind) for i in range(spec.n_comp)]
+    # overrides are plain f32 leaves in both modes, as in the twin
+    ko = {k: g.add("in", (f"ko{j}",), "f") for j, k in enumerate(ko_keys)}
+    rates = spec.rates.call_list(T, P, mofri, conc, ko)
+    return g, rates
+
+
+def interpret(graph, rates, inputs):
+    """Evaluate a traced DAG on actual values (tensors or DF32 pairs)
+    with Python's own dispatch; inputs maps the "in" names (T, P,
+    mofri<i>, conc<i>, ko<j>) to values. Returns the rate list."""
+    vals = []
+    for op, args, _ in graph.nodes:
+        a = [vals[x.i] if isinstance(x, _Sym) else x for x in args]
+        if op == "in":
+            vals.append(inputs[args[0]])
+        elif op == "neg":
+            vals.append(-a[0])
+        elif op.startswith("call:"):
+            name = op[5:]
+            if name == "log":
+                vals.append(_MATH_SHIM.log(a[0], a[1]))
+            else:
+                vals.append(getattr(_MATH_SHIM, name)(*a))
+        else:
+            vals.append(_BINARY[op](*a))
+    return [vals[r.i] if isinstance(r, _Sym) else r for r in rates]
+
+
+# -- the CUDA emitter -----------------------------------------------------------
+
+def _hexf(x) -> str:
+    v = float(np.float32(x))
+    if not np.isfinite(v):
+        raise ValueError(f"non-finite constant {x!r} in the rate program")
+    return v.hex() + "f"
+
+
+def _dflit(c) -> str:
+    hi = np.float32(c)
+    lo = np.float32(float(c) - float(hi))
+    return f"df{{{_hexf(hi)}, {_hexf(lo)}}}"
+
+
+def _is_int(v):
+    return _number(v) and float(v).is_integer()
+
+
+class _Emitter:
+    """Emits the body of one rates device function from a traced DAG,
+    reproducing at each node the operation Python dispatch performs on
+    actual values (torch ops for plain f32; DF32 methods for pairs)."""
+
+    def __init__(self, graph):
+        self.g = graph
+        self.names = {}
+
+    def _kind(self, v):
+        return v.kind if isinstance(v, _Sym) else "c"
+
+    def f(self, v):
+        return self.names[v.i] if isinstance(v, _Sym) else _hexf(v)
+
+    def df(self, v):
+        """DF32.from_value(v) as a C expression."""
+        if isinstance(v, _Sym):
+            n = self.names[v.i]
+            return n if v.kind == "df" else f"df_f({n})"
+        return _dflit(v)
+
+    def fpow(self, a, b):
+        """torch.pow semantics on f32 (its special-cased exponents)."""
+        x = self.f(a)
+        if _number(b):
+            special = {2.0: f"({x} * {x})", 3.0: f"(({x} * {x}) * {x})",
+                       0.5: f"sqrtf({x})", -0.5: f"(1.0f / sqrtf({x}))",
+                       -1.0: f"(1.0f / {x})", -2.0: f"(1.0f / ({x} * {x}))",
+                       1.0: x, 0.0: "1.0f"}
+            if float(b) in special:
+                return special[float(b)]
+        return f"powf({x}, {self.f(b)})"
+
+    def dfpow_method(self, a, b):
+        """DF32.__pow__(a, b) with a a DF32."""
+        if _is_int(b):
+            return f"df_int_pow({self.df(a)}, {int(b)})"
+        return f"df_exp(df_mul(df_log({self.df(a)}), {self.df(b)}))"
+
+    def dfrpow_method(self, y, base):
+        """DF32.__rpow__(y, base): exp(y * log(base))."""
+        if _number(base):
+            return f"df_exp(df_mul({self.df(y)}, {_dflit(_math.log(float(base)))}))"
+        return f"df_exp(df_mul({self.df(y)}, df_log({self.df(base)})))"
+
+    def binary(self, op, a, b):
+        ka, kb = self._kind(a), self._kind(b)
+        if ka != "df" and kb != "df":
+            if op == "pow":
+                return self.fpow(a, b)
+            if op == "div" and ka == "c":
+                # number / tensor: torch runs reciprocal-then-multiply
+                return f"((1.0f / {self.f(b)}) * {self.f(a)})"
+            sym = {"add": "+", "sub": "-", "mul": "*", "div": "/"}[op]
+            return f"({self.f(a)} {sym} {self.f(b)})"
+        if ka == "df":          # a.__op__(b)
+            return {
+                "add": lambda: f"df_add({self.df(a)}, {self.df(b)})",
+                "sub": lambda: f"df_sub({self.df(a)}, {self.df(b)})",
+                "mul": lambda: f"df_mul({self.df(a)}, {self.df(b)})",
+                "div": lambda: f"df_div({self.df(a)}, {self.df(b)})",
+                "pow": lambda: self.dfpow_method(a, b),
+            }[op]()
+        # b is the pair: Python falls back to b.__rop__(a)
+        return {
+            "add": lambda: f"df_add({self.df(b)}, {self.df(a)})",
+            "sub": lambda: f"df_add(df_neg({self.df(b)}), {self.df(a)})",
+            "mul": lambda: f"df_mul({self.df(b)}, {self.df(a)})",
+            "div": lambda: f"df_div({self.df(a)}, {self.df(b)})",
+            "pow": lambda: self.dfrpow_method(b, a),
+        }[op]()
+
+    def call(self, name, args, kind):
+        if kind != "df":
+            x = self.f(args[0])
+            if name == "pow":
+                return self.fpow(*args)
+            if name == "log":
+                base = args[1]
+                return f"logf({x})" if base is None else \
+                    f"(logf({x}) / logf({self.f(base)}))"
+            return {"exp": "expf", "log10": "log10f", "sqrt": "sqrtf",
+                    "fabs": "fabsf"}[name] + f"({x})"
+        if name == "pow":        # ops/df32.pow
+            x, y = args
+            if _is_int(y):
+                return f"df_int_pow({self.df(x)}, {int(y)})"
+            if _number(x):
+                return self.dfrpow_method(y, x)
+            return self.dfpow_method(x, y)
+        if name == "log":
+            x, base = args
+            lg = f"df_log({self.df(x)})"
+            return lg if base is None else f"df_div({lg}, df_log({self.df(base)}))"
+        if name == "fabs":
+            raise TypeError("the CUDA RHS generator cannot express "
+                            "math.fabs on a DF32 pair")
+        return {"exp": "df_exp", "log10": "df_log10",
+                "sqrt": "df_sqrt"}[name] + f"({self.df(args[0])})"
+
+    def body(self, inputs):
+        lines = []
+        for i, (op, args, kind) in enumerate(self.g.nodes):
+            name = f"v{i}"
+            self.names[i] = name
+            ctype = "df" if kind == "df" else "float"
+            if op == "in":
+                src = inputs[args[0]]
+                expr = f"df_f({src})" if kind == "df" else src
+            elif op == "neg":
+                expr = (f"df_neg({self.df(args[0])})" if kind == "df"
+                        else f"(-{self.f(args[0])})")
+            elif op.startswith("call:"):
+                expr = self.call(op[5:], args, kind)
+            else:
+                expr = self.binary(op, *args)
+            unused = "[[maybe_unused]] " if op == "in" else ""
+            lines.append(f"  {unused}const {ctype} {name} = {expr};")
+        return lines
+
+
+def _rates_function(spec, df32_mode, ko_keys):
+    g, rates = trace_rates(spec, df32_mode, ko_keys)
+    em = _Emitter(g)
+    inputs = {"T": "T", "P": "P"}
+    for i in range(spec.n_comp):
+        inputs[f"mofri{i}"] = f"mofri[{i}]"
+        inputs[f"conc{i}"] = f"conc[{i}]"
+    for j in range(len(ko_keys)):
+        inputs[f"ko{j}"] = f"ko[{j}]"
+    rt = "df" if df32_mode else "float"
+    lines = [
+        "__device__ __forceinline__ void rates(float T, float P, "
+        "const float* mofri, const float* conc, const float* ko, "
+        f"{rt}* r) {{",
+        "  (void)ko;",
+    ]
+    lines += em.body(inputs)
+    for m, r in enumerate(rates):
+        lines.append(f"  r[{m}] = {em.df(r) if df32_mode else em.f(r)};")
+    lines.append("}")
+    return "\n".join(lines)
+
+
+def kernel_source(spec, accurate_rates=False, ko_keys=()) -> str:
+    """The complete CUDA translation unit of the fused RHS for one spec
+    and mode: df32 helpers, the generated rates function and the kernel
+    around it (the rest of n2_core_ml)."""
+    df32_mode = accurate_rates == "df32"
+    K = _Consts(spec)
+    nc, nz, nr = spec.n_comp, spec.z_no, spec.stoich.n_rxn
+    rt = "df" if df32_mode else "float"
+    h = _hexf
+    L = []
+    L.append("// Generated by rmt_tpu_torch/ops/cuda_rhs.py -- the fused N2 RHS "
+             f"({'df32' if df32_mode else 'plain f32'} mode) for one chemistry.")
+    L.append("#include <cuda_runtime.h>")
+    consts = {
+        "DF_LN2_HI": _df32.LN2_HI, "DF_LN2_LO": _df32.LN2_LO,
+        "DF_LN2_LO2": _df32.LN2_LO2, "DF_INV_LN2": _df32.INV_LN2,
+        "DF_SQRT_HALF": _df32._SQRT_HALF, "DF_TINY": _df32._TINY,
+        "DF_INV_LN10_HI": _df32.INV_LN10_HI,
+        "DF_INV_LN10_LO": _df32.INV_LN10_LO,
+    }
+    for k, v in consts.items():
+        L.append(f"#define {k} {h(v)}")
+    L.append("#define DF_EXP_TAIL {" + ", ".join(h(c) for c in _df32.EXP_TAIL) + "}")
+    L.append("#define DF_LOG_TAIL {" + ", ".join(h(c) for c in _df32.LOG_TAIL) + "}")
+    L.append((_build.CSRC / "df32.cuh").read_text())
+    L.append(_rates_function(spec, df32_mode, ko_keys))
+
+    leaves = list(_P_1D) + list(_D_1D)
+    n1 = len(leaves) + len(ko_keys)
+    K_body = []
+    add = K_body.append
+    add(f"constexpr int NZ = {nz};")
+    add(f"constexpr int MT = {_MT};")
+    add("__device__ __forceinline__ float clampe(float c) {"
+        f" return c < {h(K.eps_c)} ? {h(K.eps_c)} : c; }}")
+    add('extern "C" __global__ void __launch_bounds__(MT * NZ)')
+    add("n2_rhs_kernel(const float* __restrict__ y, const float* __restrict__ l1,")
+    add("              const float* __restrict__ l2, float* __restrict__ out,")
+    add("              int M, int B) {")
+    add("  __shared__ float s_a[NZ][MT];")
+    add("  const int tx = threadIdx.x, zn = threadIdx.y;")
+    add("  const int mm = blockIdx.x * MT + tx;")
+    add("  const bool live = mm < M;")
+    add("  const long mc = live ? mm : M - 1;")
+    add("  const long b = mc % B;")
+    add("  const long sM = M, sB = B;")
+    for i, k in enumerate(leaves):
+        add(f"  const float {k} = l1[{i} * sB + b];")
+    add(f"  float ko[{max(len(ko_keys), 1)}];")
+    for j in range(len(ko_keys)):
+        add(f"  ko[{j}] = l1[{len(leaves) + j} * sB + b];")
+    for s in range(nc):
+        add(f"  const float SpCoi0_{s} = l2[{s} * sB + b];")
+        add(f"  const float mw_{s} = l2[{nc + s} * sB + b];")
+    for s in range(nc):
+        add(f"  const float c_raw{s} = y[({s} * NZ + zn) * sM + mc];")
+        add(f"  const float c_cl{s} = clampe(c_raw{s});")
+    if spec.iso_thermal:
+        add("  const float T_dl = 0.0f;")
+    else:
+        add(f"  const float T_dl = y[({nc} * NZ + zn) * sM + mc];")
+    add("  float co_re[NC_], mofri[NC_];".replace("NC_", str(nc)))
+    for s in range(nc):
+        add(f"  co_re[{s}] = c_cl{s} * Cmax;")
+    add("  const float T_re = T_dl * T0 + T0;")
+    add("  const float ctot = " + _chain("+", [f"co_re[{s}]" for s in range(nc)]) + ";")
+    for s in range(nc):
+        add(f"  mofri[{s}] = co_re[{s}] / ctot;")
+    add("  const float mi_mo_we = " + _chain(
+        "+", [f"(mofri[{s}] * mw_{s})" for s in range(nc)]) + f" * {h(1e-3)};")
+    add("  const float su = SuGaVe0;")
+    add("  const float v_dl = su / vf;")
+    add("  const float in_ga_ve_dl = (su / BeVoFr) / InGaVe0;")
+    add("  const float eps = BeVoFr;")
+    add(f"  const float erg_a = (({h(150.0)} * GaMiVi) * su) / (PaDi * PaDi);")
+    add("  const float erg_b = ((1.0f - eps) * (1.0f - eps)) / ((eps * eps) * eps);")
+    add(f"  const float erg_c_coef = (({h(1.75)} * su) * su) / PaDi;")
+    add("  const float erg_d = (1.0f - eps) / ((eps * eps) * eps);")
+    add(f"  const float rg_t = ({h(K.r_const)} / mi_mo_we) * T_re;")
+    add(f"  const float a_co = 1.0f - ((erg_c_coef * erg_d) / rg_t) * {h(K.dz)};")
+    add(f"  const float b_co = (-(erg_a * erg_b)) * {h(K.dz)};")
+    add("  s_a[zn][tx] = a_co;")
+    add("  __syncthreads();")
+    add("  if (!live) return;")
+    add("  // pressure march: P_k = A_k (P0 + S_k), accumulated in node order")
+    add("  float A = 1.0f, S = 0.0f;")
+    add("  for (int k = 0; k < zn; ++k) {")
+    add("    const float ak = s_a[k][tx];")
+    add("    S = S + b_co / (A * ak);")
+    add("    A = A * ak;")
+    add("  }")
+    add("  const float P_z = A * (P0 + S);")
+    add("  const float ga_de_dl = (P_z / rg_t) / GaDe0;")
+    add(f"  {rt} r[{nr}];")
+    add("  rates(T_re, P_z, mofri, co_re, ko, r);")
+    for s in range(nc):
+        terms = []
+        for m in range(nr):
+            cmk = float(K.nu[m, s])
+            if cmk == 0.0:
+                continue
+            terms.append(f"df_mul(r[{m}], {_dflit(cmk)})" if df32_mode
+                         else f"(r[{m}] * {h(cmk)})")
+        if not terms:
+            add(f"  const float ri{s} = 0.0f;")
+        elif df32_mode:
+            add(f"  const df ri_df{s} = " + _chain_df(terms) + ";")
+            add(f"  const float ri{s} = ri_df{s}.hi + ri_df{s}.lo;")
+        else:
+            add(f"  const float ri{s} = " + _chain("+", terms) + ";")
+    for s in range(nc):
+        add(f"  const float cp_i{s} = 0.5f * ({h(K.cp_ref[s])} + "
+            f"{_cp_c(K.cp[s])});")
+    add("  const float cp_mix = " + _chain(
+        "+", [f"(mofri[{s}] * cp_i{s})" for s in range(nc)]) + ";")
+    add("  const float cp_mix_dl = cp_mix / GaCpMeanMix0;")
+    add("  const float cp_mix_eff_dl = cp_mix_dl * eps;")
+    if not spec.iso_thermal:
+        for e in range(len(K.cp_eq)):
+            add(f"  const float cp_eq{e} = 0.5f * ({h(K.cp_eq_ref[e])} + "
+                f"{_cp_c(K.cp_eq[e])});")
+        add(f"  const float dT = T_re - {h(K.tref)};")
+        ov_terms = []
+        for m in range(nr):
+            en = [f"({h(K.eq_nu[m, e])} * cp_eq{e})"
+                  for e in range(len(K.cp_eq)) if float(K.eq_nu[m, e]) != 0.0]
+            he = (f"(({_chain('+', en)}) * dT) + {h(K.dh25[m])}" if en
+                  else h(K.dh25[m]))
+            add(f"  const float he{m} = {he};")
+            ov_terms.append(f"df_mul(r[{m}], df_f(he{m}))" if df32_mode
+                            else f"(r[{m}] * he{m})")
+        if df32_mode:
+            add("  const df ov_df = " + _chain_df(ov_terms) + ";")
+            add("  const float ov = ov_df.hi + ov_df.lo;")
+        else:
+            add("  const float ov = " + _chain("+", ov_terms) + ";")
+        add("  const float qm = (Tm == 0.0f) ? 0.0f : (U * aEff) * (Tm - T_re);")
+    add("  const float const_f1 = 1.0f / (eps * (zf / vf));")
+    add("  const float inv_gmc = 1.0f / GaMaCoTe0;")
+    for s in range(nc):
+        add(f"  const float c_back{s} = zn == 0 ? SpCoi0_{s} / Cmax : "
+            f"clampe(y[({s} * NZ + zn - 1) * sM + mc]);")
+        add(f"  const float dcdz{s} = (c_raw{s} - c_back{s}) * {h(K.inv_dz)};")
+        add(f"  out[({s} * NZ + zn) * sM + mm] = const_f1 * "
+            f"(((-v_dl) * dcdz{s}) + (ri{s} * inv_gmc));")
+    if not spec.iso_thermal:
+        add(f"  const float t_back = zn == 0 ? 0.0f : y[({nc} * NZ + zn - 1) * sM + mc];")
+        add(f"  const float dtdz = (T_dl - t_back) * {h(K.inv_dz)};")
+        add("  const float const_t2 = 1.0f / (((ga_de_dl * cp_mix_dl) * eps) * (zf / vf));")
+        add("  const float inv_ghc = 1.0f / GaHeCoTe0;")
+        add("  const float convective = (((-in_ga_ve_dl) * ga_de_dl) * cp_mix_eff_dl) * dtdz;")
+        add(f"  out[({nc} * NZ + zn) * sM + mm] = const_t2 * "
+            "(convective + (((-ov) + qm) * inv_ghc));")
+    add("}")
+    add("")
+    add('extern "C" int n2_rhs_launch(const float* y, const float* l1, '
+        "const float* l2, float* out, int M, int B, void* stream) {")
+    add("  const dim3 block(MT, NZ);")
+    add("  const dim3 grid((M + MT - 1) / MT);")
+    add("  n2_rhs_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(y, l1, l2, out, M, B);")
+    add("  return (int)cudaGetLastError();")
+    add("}")
+    L.append(f"// {n1} scalar leaves per member: " + ", ".join(
+        leaves + [f"ko[{j}]={k}" for j, k in enumerate(ko_keys)]))
+    L.append("\n".join(K_body))
+    return "\n".join(L) + "\n"
+
+
+def _chain(op, terms):
+    """Left-to-right reduction ((t0 op t1) op t2) ..."""
+    expr = terms[0]
+    for t in terms[1:]:
+        expr = f"({expr} {op} {t})"
+    return expr
+
+
+def _chain_df(terms):
+    expr = terms[0]
+    for t in terms[1:]:
+        expr = f"df_add({expr}, {t})"
+    return expr
+
+
+def _cp_c(c):
+    """cp polynomial at T_re as C, in _cp_poly's order."""
+    c0, c1, c2, c3 = (_hexf(v) for v in c)
+    return (f"((({c0} + ({c1} * T_re)) + (({c2} * T_re) * T_re)) + "
+            f"((({c3} * T_re) * T_re) * T_re))")
+
+
+# -- the wrapper ----------------------------------------------------------------
+
+def build_n2_fused(spec, accurate_rates=False, ko_keys=()):
+    """Fused-RHS builder. Returns ``rhs_f(y, leaves1, leaves2) -> (M, n)``
+    where y is (M, n) f32 with M = s*B (stage-major stacking) and the
+    leaves come from pack_leaves(p, d, ko_keys). A CUDA y launches the
+    generated kernel (built at first call); a CPU y runs the twin."""
+    if accurate_rates not in (False, "df32"):
+        raise ValueError("fused RHS supports accurate_rates False or 'df32'")
+    df32_mode = accurate_rates == "df32"
+    ko_keys = tuple(ko_keys)
+    name = "n2_rhs_df32" if df32_mode else "n2_rhs_plain"
+    var_no, z_no = spec.var_no_n2, spec.z_no
+    n = var_no * z_no
+    state = {"lib": None}
+
+    def source():
+        return kernel_source(spec, accurate_rates, ko_keys)
+
+    def lib():
+        if state["lib"] is None:
+            lib_ = _build.load(name, source())
+            lib_.n2_rhs_launch.argtypes = [ctypes.c_void_p] * 4 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lib_.n2_rhs_launch.restype = ctypes.c_int
+            state["lib"] = lib_
+        return state["lib"]
+
+    def rhs_f(y, leaves1, leaves2):
+        if y.device.type != "cuda":
+            return n2_rhs_twin(spec, df32_mode, ko_keys, y, leaves1, leaves2)
+        M = y.shape[0]
+        B = leaves1.shape[1]
+        if y.shape != (M, n) or M % B:
+            raise ValueError(f"{name}: y shape {tuple(y.shape)} does not fit "
+                             f"n={n}, B={B}")
+        for t, shape in ((y, (M, n)),
+                         (leaves1, (6 + 11 + len(ko_keys), B)),
+                         (leaves2, (2, spec.n_comp, B))):
+            if (t.device != y.device or t.dtype != _f32
+                    or not t.is_contiguous() or tuple(t.shape) != shape):
+                raise ValueError(f"{name}: operands must be contiguous "
+                                 f"float32 on {y.device} with shapes "
+                                 f"{shape}")
+        y_t = y.reshape(M, var_no, z_no).permute(1, 2, 0).contiguous()
+        out_t = torch.empty_like(y_t)
+        err = lib().n2_rhs_launch(
+            y_t.data_ptr(), leaves1.data_ptr(), leaves2.data_ptr(),
+            out_t.data_ptr(), M, B, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, name)
+        LAUNCHES[name] += 1
+        return out_t.permute(2, 0, 1).reshape(M, n)
+
+    rhs_f.source = source
+    rhs_f.kernel_name = name
+    return rhs_f

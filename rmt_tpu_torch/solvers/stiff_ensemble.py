@@ -1,0 +1,357 @@
+# Batched lockstep stiff integrator: Radau IIA(5) with eigen-transformed
+# stages and exact block-bidiagonal stage solves (port of the block mode
+# of rmt_tpu/solvers/stiff_ensemble.py::odeint_ensemble).
+#
+# One global adaptive loop runs the whole ensemble with per-member step
+# sizes and masked accept/reject. The 3-stage Radau coefficient matrix is
+# diagonalised once, A = T diag(gamma, mu, mu*) T^-1, which splits the
+# stacked Newton system (I - h A(x)J) dK = R into one real and one complex
+# n x n system per member. The method-of-lines Jacobian is block lower
+# bidiagonal in the axial node, so both systems are solved exactly by the
+# block kernels of ops/cuda_block.py: block_factor once per attempt,
+# block_apply once per Newton sweep, block_apply_real once per attempt for
+# the error estimate. The Jacobian blocks are refreshed once per chunk of
+# j_every attempts and transposed to the kernels' member-last layout then.
+#
+# jax.lax.scan becomes a Python loop. The only device-to-host read is the
+# early-exit test at the start of each chunk (every member finished), one
+# per chunk of attempts, never one per attempt.
+#
+# Left for later ports: Newton-Schulz mode, dense output, the tridiagonal
+# block mode, the theta-keyed growth cap, the Newton-failure barrier and
+# the reference's tuning arguments (rhs_noise, max_factor,
+# predict_stages), here fixed at the reference's defaults.
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import cuda_block
+from .radau import extrap_weights, radau_tableau
+
+_SAFETY = 0.9
+_MIN_FACTOR = 0.2
+_MAX_FACTOR = 1.4
+_ORDER_EXP = -0.25         # embedded estimate is order 3 -> exponent 1/4
+_NEWTON_TOL = 0.03
+_STATE_NOISE_MULT = 2.0    # eps*|y| through J and the solve (~1/gamma)
+
+_f32 = torch.float32
+
+
+def _transformed_tableau():
+    """Radau5 tableau + eigen-decomposition A = T diag(gamma, mu, mu*) T^-1
+    with row/col 0 the real eigenpair and col 2 the conjugate of col 1."""
+    c, A, b, bhat = radau_tableau(3)
+    w, V = np.linalg.eig(A)
+    i_real = int(np.argmin(np.abs(w.imag)))
+    i_cplx = [i for i in range(3) if i != i_real]
+    if w[i_cplx[0]].imag < 0:
+        i_cplx = [i_cplx[1], i_cplx[0]]
+    order = [i_real, i_cplx[0], i_cplx[1]]
+    w = w[order]
+    V = V[:, order]
+    V[:, 0] = V[:, 0].real / np.linalg.norm(V[:, 0].real)
+    V[:, 2] = V[:, 1].conj()
+    Vinv = np.linalg.inv(V)
+    if not np.allclose(V @ np.diag(w) @ Vinv, A, atol=1e-12):
+        raise RuntimeError("Radau eigen-decomposition failed")
+    return c, A, b, bhat, w, V, Vinv
+
+
+class EnsembleStats(NamedTuple):
+    n_fev: torch.Tensor       # (B,) RHS evals (stage evals counted singly)
+    n_jev: int                # global Jacobian refreshes
+    n_accepted: torch.Tensor  # (B,)
+    n_rejected: torch.Tensor  # (B,)
+    seg: torch.Tensor         # (B,) final output-segment pointer; a member
+                              # finished iff seg == len(ts) - 1
+    n_rej_conv: torch.Tensor  # (B,) rejections: Newton did not converge
+    n_rej_err: torch.Tensor   # (B,) rejections: error estimate > 1
+    n_rej_rho: torch.Tensor   # (B,) rejections: converged but uncertified
+                              # (non-finite residual)
+
+
+def _norm_b(v, scale):
+    return torch.sqrt(torch.mean((v / scale) ** 2, dim=-1))
+
+
+def _finite_or(x, fill):
+    return torch.where(torch.isfinite(x), x, torch.full_like(x, fill))
+
+
+def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
+                    max_steps: int = 1024, newton_iters: int = 6,
+                    j_every: int = 16, f_cheap=None,
+                    cheap_sweeps: int = 0, f_stages=None,
+                    f_cheap_stages=None, out_members=None):
+    """Integrate a stiff ensemble dy/dt = f(t, y) for every member.
+
+    f is batched: f(t (B,), y (B, n)) -> (B, n). jac_blocks(t, y) ->
+    (Jd, Jl), each (B, z_no, var_no, var_no): the block-bidiagonal
+    Jacobian in the flat state layout v*z_no + z, with block = (var_no,
+    z_no). f_stages / f_cheap_stages: optional all-stages evaluators
+    (ts (B, 3), Y (B, 3, n)) -> (B, 3, n); the fused RHS kernel provides
+    one over the stage-stacked 3B batch.
+
+    f_cheap + cheap_sweeps: the first cheap_sweeps Newton sweeps of each
+    attempt use f_cheap; the rest use f, with the per-member done flags
+    reset at the switch so convergence is judged on accurate increments.
+
+    Returns (ys, stats) with ys (n_out, B, n), ys[0] == y0. With
+    out_members (host int indices (P,)) only those members' trajectories
+    are recorded and the return is (ys_sel (n_out, P, n), y_final (B, n),
+    stats).
+    """
+    Bsz, n = y0.shape
+    dtype, dev = y0.dtype, y0.device
+    var_no, z_no = block
+    if var_no * z_no != n:
+        raise ValueError(f"block {block} does not tile the state size {n}")
+    if out_members is not None:
+        out_idx = torch.as_tensor(np.asarray(out_members, np.int64),
+                                  device=dev)
+        n_rec = int(out_idx.shape[0])
+    else:
+        out_idx, n_rec = None, Bsz
+    # relative evaluation noise of f: the floor of the Newton test
+    rhs_noise = 2e-6 if dtype == _f32 else 1e-14
+    # f32 keeps the small growth cap: the exact solve still carries
+    # eps32-level noise and aggressive growth feeds Newton failures
+    max_fac = _MAX_FACTOR if dtype == _f32 else 3.0
+    eps_dt = torch.finfo(dtype).eps
+
+    c_np, A_np, b_np, bhat_np, w_np, T_np, Tinv_np = _transformed_tableau()
+
+    def cst(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    ts = torch.as_tensor(ts, dtype=dtype, device=dev)
+    C, A, Bv, BHAT = cst(c_np), cst(A_np), cst(b_np), cst(bhat_np)
+    Ainv = cst(np.linalg.inv(A_np))
+    gamma = float(w_np[0].real)
+    mu_r, mu_i = float(w_np[1].real), float(w_np[1].imag)
+    coef = cuda_block.apply_coefficients(gamma, mu_r, mu_i, T_np, Tinv_np)
+    n_out = ts.shape[0]
+    cheap_n = (min(int(cheap_sweeps), newton_iters - 1)
+               if (f_cheap is not None and cheap_sweeps) else 0)
+
+    def stage_eval(fB, fS, t, h, Y):
+        ts_st = t[:, None] + C[None, :] * h[:, None]          # (B, 3)
+        if fS is not None:
+            return fS(ts_st, Y)
+        return torch.stack([fB(ts_st[:, i], Y[:, i]) for i in range(3)],
+                           dim=1)
+
+    def predict_K(Kp, hp, h_new, f0):
+        """Stage guess from the previous accepted step's collocation
+        polynomial (RADAU5's starting values by extrapolation)."""
+        r = torch.clamp(h_new / torch.clamp(hp, min=1e-300), 0.0, 4.0)
+        W = extrap_weights(c_np, r).to(dtype)                  # (B, 3, 3)
+        Z = hp[:, None, None] * torch.einsum("ij,bjn->bin", A, Kp)
+        Zg = torch.einsum("bij,bjn->bin", W, Z) - Z[:, 2:3, :]
+        Kg = torch.einsum("ij,bjn->bin", Ainv, Zg) / h_new[:, None, None]
+        return _finite_or(Kg, 0.0)
+
+    def to_member_last(J):          # (B, z, m, m) -> (z, m, m, B) f32
+        return J.to(_f32).permute(1, 2, 3, 0).contiguous()
+
+    def stage_solvers(h_eff, Jd_t, Jl_t):
+        """Factor once for this attempt's h; return the stage solve
+        R (B, 3, n) -> dK and the error smoothing e (B, n) -> x."""
+        h32 = h_eff.to(_f32).contiguous()
+        MinvR, MinvCr, MinvCi = cuda_block.block_factor(
+            Jd_t, h32, gamma=gamma, mu_r=mu_r, mu_i=mu_i)
+
+        def solve_stages(R):
+            R_t = R.to(_f32).reshape(Bsz, 3, var_no, z_no).permute(
+                1, 2, 3, 0).contiguous()
+            dK_t = cuda_block.block_apply(R_t, MinvR, MinvCr, MinvCi, Jl_t,
+                                          h32, coef=coef)
+            return dK_t.permute(3, 0, 1, 2).reshape(Bsz, 3, n).to(dtype)
+
+        def solve_err(e32):
+            e_t = e32.reshape(Bsz, var_no, z_no).permute(1, 2, 0).contiguous()
+            x_t = cuda_block.block_apply_real(e_t, MinvR, Jl_t, h32,
+                                              gamma=gamma)
+            return x_t.permute(2, 0, 1).reshape(Bsz, n).to(dtype)
+
+        return solve_stages, solve_err
+
+    def newton_sweeps(k, fB, fS, carry, t, y, h_eff, scale3, state_floor,
+                      solve_stages):
+        K, done, rn = carry
+        hcol = h_eff[:, None]
+        for _ in range(k):
+            Y = y[:, None, :] + h_eff[:, None, None] * torch.einsum(
+                "ij,bjn->bin", A, K)
+            R = stage_eval(fB, fS, t, h_eff, Y) - K
+            rn_new = _finite_or(_norm_b(hcol * R.reshape(Bsz, -1), scale3),
+                                float("inf"))
+            dK = solve_stages(R)
+            K_new = K + torch.where(done[:, None, None],
+                                    torch.zeros_like(dK), dK)
+            # convergence measured on the stage-value increment h*dK
+            dn_new = _finite_or(
+                _norm_b(hcol * dK.reshape(Bsz, -1), scale3), float("inf"))
+            floor = rhs_noise * _norm_b(hcol * K.reshape(Bsz, -1), scale3)
+            tol_eff = torch.clamp(3.0 * floor + state_floor, min=_NEWTON_TOL)
+            rn = torch.where(done, rn, rn_new)
+            done = done | (dn_new < tol_eff)
+            K = K_new
+        return K, done, rn
+
+    def attempt(s, Jd_t, Jl_t):
+        t, y, yc, fval, h = s["t"], s["y"], s["yc"], s["f"], s["h"]
+        seg = s["seg"]
+        seg_c = torch.clamp(seg + 1, max=n_out - 1)
+        t_end = ts[seg_c]                                       # (B,)
+        active = seg < (n_out - 1)
+        h_eff = torch.where(active, torch.minimum(h, t_end - t), h)
+        h_eff = torch.clamp(h_eff, min=1e-300)
+        solve_stages, solve_err = stage_solvers(h_eff, Jd_t, Jl_t)
+
+        scale = atol + rtol * torch.abs(y)
+        scale3 = scale.repeat(1, 3) * np.sqrt(3.0)
+        # f32 state-representation noise floor of the Newton increment
+        state_floor = _STATE_NOISE_MULT * eps_dt * _norm_b(y, scale)
+
+        f0 = fval
+        K = f0[:, None, :].expand(Bsz, 3, n)
+        K = torch.where(s["pv"][:, None, None],
+                        predict_K(s["Kp"], s["hp"], h_eff, f0), K)
+        not_done = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+        carry = (K, not_done,
+                 torch.full((Bsz,), float("inf"), dtype=dtype, device=dev))
+        sweep_args = (t, y, h_eff, scale3, state_floor, solve_stages)
+        if cheap_n > 0:
+            # cheap sweeps first, then reset done so every member is
+            # judged on accurate increments
+            Kc, _, rnc = newton_sweeps(cheap_n, f_cheap, f_cheap_stages,
+                                       carry, *sweep_args)
+            carry = (Kc, not_done, rnc)
+        K, conv, res_n = newton_sweeps(newton_iters - cheap_n, f, f_stages,
+                                       carry, *sweep_args)
+        newton_done = conv
+        conv = conv & torch.isfinite(res_n)
+
+        bK = torch.einsum("j,bjn->bn", Bv, K)
+        y1 = y + h_eff[:, None] * bK
+        # embedded error estimate smoothed by (I - h*gamma*J)^-1 (f32)
+        err_raw = h_eff[:, None] * (
+            torch.einsum("j,bjn->bn", Bv - BHAT[1:], K) - BHAT[0] * f0)
+        err_s = solve_err(err_raw.to(_f32))
+        scale2 = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y1))
+        err_norm = _finite_or(_norm_b(err_s, scale2), float("inf"))
+        err_norm = torch.where(conv, err_norm,
+                               torch.full_like(err_norm, float("inf")))
+
+        accept = (err_norm <= 1.0) & active
+        err_c = torch.clamp(err_norm, 1e-10, 1e10)
+        factor = torch.clamp(_SAFETY * err_c ** _ORDER_EXP, _MIN_FACTOR,
+                             max_fac)
+        factor = torch.where(accept, factor, torch.clamp(factor, max=1.0))
+        factor = torch.where(conv, factor, torch.full_like(factor, 0.5))
+        clamped = h_eff < h
+        h_new = torch.where(accept & clamped,
+                            torch.maximum(h, h_eff * factor), h_eff * factor)
+        h_new = torch.where(active, h_new, h)
+
+        t_new = torch.where(accept, t + h_eff, t)
+        # Kahan-compensated state accumulation: the compensation carries
+        # the low-order bits each f32 step would otherwise lose
+        acc2 = accept[:, None]
+        u = h_eff[:, None] * bK + yc
+        y1k = y + u
+        yc1 = u - (y1k - y)
+        y_new = torch.where(acc2, y1k, y)
+        yc_new = torch.where(acc2, yc1, yc)
+        # fval only seeds the next start and the error estimate, so in
+        # hybrid mode the cheap RHS suffices
+        f_cand = (f_cheap if cheap_n > 0 else f)(t_new, y_new)
+        f_new = torch.where(acc2, f_cand, fval)
+
+        # boundary crossing: record the state, advance the pointer
+        eps_t = 8 * eps_dt * torch.clamp(torch.abs(t_end), min=1.0)
+        crossed = accept & (t_new >= t_end - eps_t)
+        if out_idx is None:
+            seg_r, crossed_r, y_r = seg_c, crossed, y_new
+        else:
+            seg_r, crossed_r, y_r = (seg_c[out_idx], crossed[out_idx],
+                                     y_new[out_idx])
+        onehot = (torch.arange(1, n_out, device=dev)[:, None]
+                  == seg_r[None, :]) & crossed_r[None, :]
+        out = torch.where(onehot[:, :, None], y_r[None, :, :], s["out"])
+        seg_new = seg + crossed.to(seg.dtype)
+
+        rejected = (~accept) & active
+        st = s["stats"]
+        i32 = lambda m: m.to(torch.int32)
+        st = st._replace(
+            n_fev=st.n_fev + i32(active) * (3 * newton_iters + 1),
+            n_accepted=st.n_accepted + i32(accept),
+            n_rejected=st.n_rejected + i32(rejected),
+            seg=seg_new,
+            n_rej_conv=st.n_rej_conv + i32(rejected & ~newton_done),
+            n_rej_err=st.n_rej_err + i32(rejected & conv),
+            n_rej_rho=st.n_rej_rho + i32(rejected & newton_done & ~conv),
+        )
+        return dict(
+            t=t_new, y=y_new, yc=yc_new, f=f_new, h=h_new, seg=seg_new,
+            out=out, stats=st,
+            # predictor state: the last ACCEPTED step's stages and size
+            Kp=torch.where(accept[:, None, None], K, s["Kp"]),
+            hp=torch.where(accept, h_eff, s["hp"]),
+            pv=s["pv"] | accept,
+        )
+
+    # --- initialization ---
+    t0 = torch.full((Bsz,), float(ts[0]), dtype=dtype, device=dev)
+    f0 = f(t0, y0)
+    span = ts[-1] - ts[0]
+    Jd0, Jl0 = (J.to(_f32) for J in jac_blocks(t0, y0))
+    # first step: ||h*gamma*J|| << 1, with the block row sums (identical
+    # to the dense row sums of the block-bidiagonal J)
+    row_sums = torch.sum(torch.abs(Jd0), dim=-1) + torch.sum(
+        torch.abs(Jl0), dim=-1)                                 # (B, z, m)
+    j_norm = torch.amax(row_sums, dim=(-1, -2)).to(dtype)
+    h0 = torch.clamp(0.05 / (abs(gamma) * j_norm + 1e-30), max=1e-3 * span)
+
+    zero_b = torch.zeros(Bsz, dtype=torch.int32, device=dev)
+    s = dict(
+        t=t0, y=y0, yc=torch.zeros_like(y0), f=f0, h=h0, seg=zero_b.clone(),
+        out=torch.zeros((n_out - 1, n_rec, n), dtype=dtype, device=dev),
+        stats=EnsembleStats(zero_b + 1, 1, zero_b, zero_b, zero_b, zero_b,
+                            zero_b, zero_b),
+        Kp=f0[:, None, :].expand(Bsz, 3, n),
+        hp=torch.ones(Bsz, dtype=dtype, device=dev),
+        pv=torch.zeros(Bsz, dtype=torch.bool, device=dev),
+    )
+    n_chunks = max(max_steps // j_every, 1)
+    for _ in range(n_chunks):
+        # early exit once every member has written its last segment: the
+        # one host sync of a chunk
+        if not bool(torch.any(s["seg"] < n_out - 1)):
+            break
+        # refresh the Jacobian blocks once per chunk, member-last
+        Jd, Jl = jac_blocks(s["t"], s["y"])
+        Jd_t, Jl_t = to_member_last(Jd), to_member_last(Jl)
+        s["stats"] = s["stats"]._replace(n_jev=s["stats"].n_jev + 1)
+        for _ in range(j_every):
+            s = attempt(s, Jd_t, Jl_t)
+
+    y_fin, out, stats = s["y"], s["out"], s["stats"]
+    # members that exhausted the budget keep their final state in the
+    # remaining output slots (detectable through stats.seg)
+    y_tail = y_fin if out_idx is None else y_fin[out_idx]
+    seg_tail = stats.seg if out_idx is None else stats.seg[out_idx]
+    tail = torch.arange(1, n_out, device=dev)[:, None] > seg_tail[None, :]
+    out = torch.where(tail[:, :, None], y_tail[None, :, :], out)
+    y0_head = y0 if out_idx is None else y0[out_idx]
+    ys = torch.cat([y0_head[None], out], dim=0)
+    if out_idx is not None:
+        return ys, y_fin, stats
+    return ys, stats

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Where the time of the port's f32x N2 DME sweep goes, on one CUDA card.
+
+    python3 scripts/torch_lockstep_profile.py
+
+Runs chip_smoke.py's sweep at its B = 4096 (bench.py's f32x leg through
+rmt_tpu_torch.parallel.run_n2_ensemble_lockstep) and prints:
+  - the wall of a first run (CUDA set-up and kernel builds) and of two
+    warm runs, with the integrator's attempts and Jacobian refreshes;
+  - a warm run with the Jacobian-block refresh timed on its own (the
+    card synchronised around each refresh);
+  - a torch.profiler window of two chunks (16 attempts, two refreshes):
+    its wall, the device time of every kernel in it, the busy share and
+    the number of kernel launches, then the kernels by device time.
+"""
+
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_lockstep_profile: no CUDA device")
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from rmt_tpu_torch.cases.dme_case import make_model_input
+    from rmt_tpu_torch.parallel import run_n2_ensemble_lockstep
+    from rmt_tpu_torch.solvers import stiff_ensemble
+
+    dev = torch.device("cuda:0")
+    card = chip_smoke.header(torch)
+    B = chip_smoke.B
+    mi = make_model_input(model="N2")
+    sweep = {"T0": 523.0 + np.linspace(-5.0, 5.0, B)}
+
+    def run(label, **over):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, stats = run_n2_ensemble_lockstep(
+            mi, sweep, device=dev, **dict(chip_smoke.F32X, **over))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        att = (stats.n_accepted + stats.n_rejected).cpu().numpy()
+        print(f"{label}: B {B}, wall {wall:.3f} s, members/s {B / wall:.1f}, "
+              f"refreshes {stats.n_jev - 1}, attempts mean {att.mean():.1f} "
+              f"max {int(att.max())}", flush=True)
+        return wall
+
+    run("first run")
+    run("warm run 1")
+    run("warm run 2")
+
+    # the Jacobian-block refresh alone: wrap the jac_blocks callable the
+    # entry point hands to the integrator
+    odeint = stiff_ensemble.odeint_ensemble
+    spent = {"s": 0.0, "n": 0}
+
+    def timed_odeint(f, y0, ts, *, jac_blocks, **kw):
+        def jac_timed(t, y):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = jac_blocks(t, y)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["n"] += 1
+            return out
+        return odeint(f, y0, ts, jac_blocks=jac_timed, **kw)
+
+    stiff_ensemble.odeint_ensemble = timed_odeint
+    try:
+        wall = run("split run")
+    finally:
+        stiff_ensemble.odeint_ensemble = odeint
+    print(f"split run: jac_blocks {spent['s']:.3f} s of {wall:.3f} s over "
+          f"{spent['n']} calls ({spent['s'] / spent['n'] * 1e3:.1f} ms "
+          f"each)", flush=True)
+
+    # a profiled window of two chunks (j_every = 8 attempts each)
+    window = dict(max_steps=2 * chip_smoke.F32X["j_every"])
+    run("window warm-up", **window)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run("profiled window", **window)
+    ka = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_ms = sum(e.self_device_time_total for e in ka
+                 if e.device_type == cuda) / 1e3
+    launches = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    print(f"profiled window: device time {dev_ms:.2f} ms in {wall:.3f} s "
+          f"wall (busy share {dev_ms / 1e3 / wall:.4f}), kernel launches "
+          f"{launches}", flush=True)
+    print(ka.table(sort_by="self_device_time_total", row_limit=15,
+                   max_name_column_width=50))
+    print(card)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,137 @@
+# The fused N2 RHS of the port (rmt_tpu_torch/ops/cuda_rhs.py): on the
+# CPU the wrapper runs its plain PyTorch twin, held here to rmt_tpu's
+# fused Pallas RHS (ops/pallas_rhs.py, interpret mode) in plain and df32
+# mode, at M = B and at the stage-stacked M = 3B, with the bars of
+# tests/test_fused_rhs.py. The generated CUDA kernels are held to the same
+# twin on the card by chip_smoke.py.
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dme_case import make_model_input
+from rmt_tpu.models import homo as jhomo
+from rmt_tpu.ops import pallas_rhs
+from rmt_tpu.parallel import batch_params
+from rmt_tpu_torch.convert import params_from_jax
+from rmt_tpu_torch.models import homo as thomo
+from rmt_tpu_torch.ops import cuda_rhs
+
+B = 8
+
+
+def _to32(tree):
+    return jax.tree.map(lambda x: jnp.asarray(np.asarray(x, np.float32)),
+                        tree)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """Per-member float32 leaves and a state mildly off the initial value
+    (kinetics and stencils active), the same numbers for both packages."""
+    mi = make_model_input(model="N2")
+    jspec = jhomo.build_spec(mi, z_no=20, t_no=5)
+    base = jhomo.build_params(mi)
+    params, axes = batch_params(
+        base, {"T0": jnp.asarray(523.0 + np.linspace(-5.0, 5.0, B))})
+
+    def derive(q):
+        d = jhomo.feed_state(jspec, q)
+        return d, jhomo.n2_initial_state(jspec, q, d)
+
+    dB, y0B = jax.vmap(derive, in_axes=(axes,))(params)
+
+    def bcast(val, ax):
+        arr = jnp.asarray(val)
+        return arr if ax == 0 else jnp.broadcast_to(arr[None],
+                                                    (B,) + arr.shape)
+
+    pB = {k: ({kk: bcast(vv, axes[k][kk]) for kk, vv in v.items()}
+              if k == "kinetic_overrides" else bcast(v, axes[k]))
+          for k, v in params.items()}
+    pB32, dB32 = _to32(pB), _to32(dB)
+    rng = np.random.default_rng(0)
+    y = (np.asarray(y0B) * (1.0 + 0.05 * rng.uniform(size=y0B.shape))
+         ).astype(np.float32)
+    tspec = thomo.build_spec(mi)
+    leaves = cuda_rhs.pack_leaves(params_from_jax(pB32, dtype=torch.float32),
+                                  params_from_jax(dB32, dtype=torch.float32))
+    return jspec, tspec, pB, dB, pB32, dB32, y, leaves
+
+
+def _scaled_rel(got, ref):
+    scale = np.maximum(np.abs(ref), 1e-3 * np.max(np.abs(ref)))
+    return float(np.max(np.abs(np.asarray(got, np.float64) - ref) / scale))
+
+
+def _stack3(y):
+    return np.concatenate([y, y * 1.01, y * 0.99], axis=0).astype(np.float32)
+
+
+@pytest.mark.parametrize("rows", ["B", "3B"])
+@pytest.mark.parametrize("mode", [False, "df32"])
+def test_twin_matches_pallas(setup, mode, rows):
+    """tests/test_fused_rhs.py bar: 5e-5 of max(|ref|, 1e-3 max|ref|) --
+    a few f32 ulps through the ~1e3-amplifying kinetics cancellation
+    (prefix-scan order, species-sum order, libm)."""
+    jspec, tspec, _, _, pB32, dB32, y, leaves = setup
+    yy = y if rows == "B" else _stack3(y)
+    ref = np.asarray(pallas_rhs.build_n2_fused(
+        jspec, accurate_rates=mode, interpret=True)(
+            None, jnp.asarray(yy), pB32, dB32), np.float64)
+    rhs = cuda_rhs.build_n2_fused(tspec, accurate_rates=mode)
+    before = dict(cuda_rhs.LAUNCHES)
+    got = rhs(torch.as_tensor(yy), *leaves)
+    assert cuda_rhs.LAUNCHES == before      # CPU tensors run the twin
+    assert tuple(got.shape) == ref.shape and got.dtype == torch.float32
+    assert _scaled_rel(got.numpy(), ref) < 5e-5
+
+
+@pytest.mark.parametrize("mode", [False, "df32"])
+def test_stage_stacked_equals_three_calls(setup, mode):
+    """M = 3B stage-major stacking (member = row % B) equals three
+    B-sized calls: bit for bit in df32 mode (pair arithmetic, no libm),
+    within the 5e-5 bar in plain mode (vectorised and scalar libm paths
+    may differ by an ulp)."""
+    _, tspec, _, _, _, _, y, leaves = setup
+    rhs = cuda_rhs.build_n2_fused(tspec, accurate_rates=mode)
+    y3 = torch.as_tensor(_stack3(y))
+    out3 = rhs(y3, *leaves).numpy()
+    for s in range(3):
+        one = rhs(y3[s * B:(s + 1) * B], *leaves).numpy()
+        if mode == "df32":
+            np.testing.assert_array_equal(out3[s * B:(s + 1) * B], one)
+        else:
+            assert _scaled_rel(out3[s * B:(s + 1) * B], one) < 5e-5
+
+
+def test_df32_twin_tracks_f64_reference(setup):
+    """The df32 twin stays as close to the float64 RHS as rmt_tpu's df32
+    path does (tests/test_fused_rhs.py: within 2x, or 2e-6)."""
+    jspec, tspec, pB, dB, pB32, dB32, y, leaves = setup
+    rhs64 = jhomo.make_n2_rhs(jspec)
+    p64 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float64), pB)
+    d64 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float64), dB)
+    ref64 = np.asarray(jax.vmap(
+        lambda y_, p_, d_: rhs64(0.0, y_, p_, d_), in_axes=(0, 0, 0))(
+            jnp.asarray(y, jnp.float64), p64, d64))
+    xla = np.asarray(jhomo.make_n2_rhs_b(jspec, accurate_rates="df32")(
+        jnp.zeros((B,)), jnp.asarray(y), pB32, dB32), np.float64)
+    got = cuda_rhs.build_n2_fused(tspec, accurate_rates="df32")(
+        torch.as_tensor(y), *leaves).numpy()
+    err_port = _scaled_rel(got, ref64)
+    err_xla = _scaled_rel(xla, ref64)
+    assert err_port < max(2.0 * err_xla, 2e-6), (err_port, err_xla)
+
+
+def test_wrapper_checks_rows():
+    spec = thomo.build_spec(make_model_input(model="N2"))
+    rhs = cuda_rhs.build_n2_fused(spec)
+    leaves1 = torch.zeros((17, 4))
+    leaves2 = torch.zeros((2, 6, 4))
+    with pytest.raises(ValueError, match="multiple"):
+        rhs(torch.zeros((6, 140)), leaves1, leaves2)
+    with pytest.raises(ValueError, match="accurate_rates"):
+        cuda_rhs.build_n2_fused(spec, accurate_rates=True)
