@@ -10,21 +10,32 @@ back to the CPU: without a card it exits nonzero and prints no result.
 Phases (any failure ends the run with a nonzero exit and no "ok" line):
   0. header: the card's name and power limit, torch/CUDA versions, and
      both TF32 switches off;
-  1. build: nvcc builds the block kernels (csrc/block.cu) and the fused
-     N2 RHS kernels generated for the DME chemistry (plain and df32), all
-     at once, into build/;
+  1. build: nvcc builds the block kernels (csrc/block.cu), the
+     Newton-Schulz kernel (csrc/ns.cu) and the fused N2 RHS kernels
+     generated for the DME and the CH4 chemistry (plain and df32 each),
+     all at once, into build/;
   2. each kernel against its plain PyTorch twin on the card, at the main
-     path's shapes (B = 4096 members, z = 20 nodes, m = 7 variables; the
-     RHS at M = B and M = 3B rows), each timed with CUDA events (median
-     of 25 samples of 5 back-to-back calls);
-  3. the f32x DME sweep (bench.py's headline leg) at B = 4096 through
+     paths' shapes (B = 4096 members, z = 20 nodes, m = 7 variables,
+     n = 140; the RHS at M = B and M = 3B rows), each timed with CUDA
+     events (median of 25 samples of 5 back-to-back calls) beside its
+     twin, its roofline bound and, where one PyTorch call computes the
+     same function, that call. The block and RHS kernels equal their
+     twins bit for bit; the Newton-Schulz kernel (dense float32 products
+     against cuBLAS) is held to 2e-5, and to a float64 evaluation;
+  3. the f32x DME sweep (bench.py's headline leg: df32 kinetics, exact
+     block solves) at B = 4096 through
      rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, with the 64 probe
      temperatures of bench_ref.npz spliced into the sweep, run twice (the
      first run pays the one-time CUDA set-up, the second is timed): every
      member must finish, every state be finite, the probes' max relative
      error against the CPU-float64 reference stay <= 1e-6, and every
      kernel of the path must have launched in the timed run (counts reset
-     just before it).
+     just before it);
+  4. the f32 DME sweep (bench.py's f32 leg: plain float32, Newton-Schulz
+     preconditioners) the same way, under a 5e-5 bar that guards against
+     a broken solve (bench.py sets no accuracy bar for this leg);
+  5. the CH4 second-chemistry guard: the f32x options on the CH4 case at
+     its 16 probe temperatures, <= 1e-6.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -46,6 +57,17 @@ GROUP = 5
 # bench.py's f32x leg (LEGS["f32x"])
 F32X = dict(rtol=6e-7, atol=1e-9, max_steps=768, newton_iters=5, j_every=8,
             accurate_rates="df32", exact_solve=True, cheap_sweeps=2)
+# bench.py's f32 leg (LEGS["f32"]), with the integrator's Newton-Schulz
+# defaults spelled out for the launch count
+F32 = dict(rtol=1e-5, atol=1e-7, max_steps=768, newton_iters=5, j_every=8,
+           ns_refresh=5, ns_step=1)
+# the card's published peaks (H100 SXM): device memory and float32 outside
+# the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+F32X_KERNELS = ("block_factor", "block_apply", "block_apply_real",
+                "n2_rhs_df32", "n2_rhs_plain")
+F32_KERNELS = ("ns_fused_step", "n2_rhs_plain")
 
 
 def say(*args):
@@ -88,6 +110,15 @@ def time_ms(torch, fn):
         b.synchronize()
         times.append(a.elapsed_time(b) / GROUP)
     return statistics.median(times)
+
+
+def bound(n_bytes, n_ops):
+    """The least time the card could take: each input read once and each
+    output written once over the memory rate, or the operations over the
+    float32 rate, whichever is larger."""
+    t_b, t_o = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
 
 
 def rel_err(got, want, floor):
@@ -168,24 +199,40 @@ def block_phase(torch, np, cuda_block, tableau, dev):
     say(f"block_apply: Kronecker residual {worst:.3e} (bar 5e-4)")
     check(worst < 5e-4, f"block_apply Kronecker residual {worst}")
 
+    # bounds: bytes of each operand once; operations of three m x 2m
+    # Gauss-Jordan inversions (4m^3 - 2m^2 each), two m x m products and
+    # the shifted assemblies (factor), eight m x m matvecs and the two
+    # 3 x 3 stage transforms per node (apply), two matvecs per node (real)
+    mat, vec = z * m * m * B * 4, m * z * B * 4
+    gj = 4 * m ** 3 - 2 * m ** 2
+    # the library's part of block_factor: the real-shift inverses alone
+    M_r = (torch.eye(m, device=dev) - (gamma * h_t)[:, None, None, None]
+           * on(Jd)).reshape(B * z, m, m)
     res = {}
     res["block_factor"] = dict(
         max_abs_err=abs_f,
         ms=time_ms(torch, lambda: cuda_block.block_factor(Jd_t, h_t, **kw)),
         plain_ms=time_ms(torch, lambda: cuda_block.block_factor_twin(
-            Jd_t, h_t, gamma, mu_r, mu_i)))
+            Jd_t, h_t, gamma, mu_r, mu_i)),
+        library_ms=time_ms(torch, lambda: torch.linalg.inv(M_r)),
+        **bound(4 * mat + 4 * B, B * z * (3 * gj + 4 * m ** 3 + 8 * m * m)))
     res["block_apply"] = dict(
         max_abs_err=abs_a,
         ms=time_ms(torch, lambda: cuda_block.block_apply(
             R_t, *fk, Jl_t, h_t, coef=coef)),
         plain_ms=time_ms(torch, lambda: cuda_block.block_apply_twin(
-            R_t, *ft, Jl_t, h_t, coef)))
+            R_t, *ft, Jl_t, h_t, coef)),
+        library_ms=None,
+        **bound(4 * mat + 6 * vec + 4 * B,
+                B * z * (16 * m * m + 12 * m + 30 * m)))
     res["block_apply_real"] = dict(
         max_abs_err=abs_r,
         ms=time_ms(torch, lambda: cuda_block.block_apply_real(
             e_t, fk[0], Jl_t, h_t, gamma=gamma)),
         plain_ms=time_ms(torch, lambda: cuda_block.block_apply_real_twin(
-            e_t, ft[0], Jl_t, h_t, gamma)))
+            e_t, ft[0], Jl_t, h_t, gamma)),
+        library_ms=None,
+        **bound(2 * mat + 2 * vec + 4 * B, B * z * (4 * m * m + 2 * m)))
     return res
 
 
@@ -232,12 +279,19 @@ def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
         # result by about an f32 ulp, far inside the 5e-5 bar, but not here
         check(worst_abs == 0.0,
               f"{name} differs from its twin by {worst_abs}")
+        # bound at the timed shape, M = 3B rows: the state read and the
+        # derivative written once, the leaves read once; operations from
+        # the traced rate program (cuda_rhs.operation_count)
+        n_bytes = 4 * (2 * y3.numel() + ens.leaves1.numel()
+                       + ens.leaves2.numel())
+        n_ops = rhs_f.operations() * y3.shape[0] * ens.spec.z_no
         res[name] = dict(
             max_abs_err=worst_abs,
             ms=time_ms(torch, lambda: rhs_f(y3, ens.leaves1, ens.leaves2)),
             plain_ms=time_ms(torch, lambda: cuda_rhs.n2_rhs_twin(
                 ens.spec, df32_mode, ens.ko_keys, y3, ens.leaves1,
-                ens.leaves2)))
+                ens.leaves2)),
+            library_ms=None, **bound(n_bytes, n_ops))
     # the twin could share a fault with the kernel, so the df32 mode is
     # also held to what it is for: on this input its error against the
     # float64 RHS is about a fifth of the plain mode's (a CPU run of the
@@ -251,24 +305,177 @@ def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
     return res
 
 
-def sweep_phase(torch, np, mi, run, counts, dev):
-    """bench.py's f32x leg at B = 4096 with the 64 reference probes
-    spliced in (bench.py:_probe_layout), probes recorded (out_members).
-    It runs twice: the first run pays the process's one-time CUDA and
-    library set-up; the second is the timed one, and the kernel launch
-    counts are reset just before it and read just after it."""
-    with np.load(os.path.join(ROOT, "bench_ref.npz")) as z:
-        offsets, ref_ys, t_base = (z["dme_offsets"], z["dme_ys"],
-                                   float(z["dme_t_base"]))
-    sweep = np.linspace(-5.0, 5.0, B)
-    idx = np.round(np.linspace(0, B - 1, len(offsets))).astype(int)
+def rhs_guard(torch, np, cuda_rhs, rhs_fns, ens):
+    """The RHS kernels generated for a second chemistry against their
+    twins, bit for bit, at the stage-stacked M = 3B rows."""
+    rng = np.random.default_rng(SEED)
+    pert = 1.0 + 0.05 * rng.uniform(size=tuple(ens.y0.shape))
+    y = (ens.y0.double() * torch.as_tensor(pert, device=ens.y0.device)).to(
+        torch.float32)
+    y3 = torch.cat([y, y * 1.01, y * 0.99], dim=0)
+    for mode, rhs_f in rhs_fns.items():
+        got = rhs_f(y3, ens.leaves1, ens.leaves2)
+        want = cuda_rhs.n2_rhs_twin(ens.spec, mode == "df32", ens.ko_keys,
+                                    y3, ens.leaves1, ens.leaves2)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "CH4 RHS is not finite")
+        dmax = float((got - want).abs().max())
+        say(f"ch4 {rhs_f.kernel_name}: max_abs_err {dmax:.3e} against its "
+            f"twin at M = {y3.shape[0]} rows, n = {y3.shape[1]}")
+        check(dmax == 0.0, f"CH4 {rhs_f.kernel_name} differs from its twin "
+              f"by {dmax}")
+
+
+def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
+    """ns_fused_step against its twin at the f32 leg's shapes: J the DME
+    dense Jacobian of the sweep's members at y0, h the integrator's first
+    step times a spread of 1 ... 100, P the cold seed after three twin
+    iterations (so the step contracts)."""
+    w = tableau[4]
+    eig = dict(gamma=float(w[0].real), mu_r=float(w[1].real),
+               mu_i=float(w[1].imag))
+    Bn, n, _ = J.shape
+    spread = torch.logspace(0.0, 2.0, Bn, device=dev, dtype=torch.float32)
+    h = (h0 * spread).contiguous()
+    P = cuda_ns.ns_cold_start(J, h, **eig)
+    for _ in range(3):
+        *P, rho_in = cuda_ns.ns_fused_step_twin(J, *P, h, *eig.values())
+    P = tuple(p.contiguous() for p in P)
+    ws = cuda_ns.Workspace(Bn, n, dev)
+
+    got = cuda_ns.ns_fused_step(J, *P, h, **eig, workspace=ws)
+    want = cuda_ns.ns_fused_step_twin(J, *P, h, *eig.values())
+    f64 = torch.float64
+    ref = cuda_ns.ns_fused_step_twin(J.to(f64), *(p.to(f64) for p in P),
+                                     h.to(f64), *eig.values())
+    torch.cuda.synchronize()
+
+    def scaled(x, y):
+        return float(((x.double() - y.double()).abs()
+                      / (1.0 + y.double().abs())).max())
+
+    names = ("Pr", "Pcr", "Pci", "rho")
+    err_tw = max(scaled(g, t) for g, t in zip(got[:3], want[:3]))
+    abs_tw = max(float((g - t).abs().max()) for g, t in zip(got, want))
+    rho_rel = float(((got[3] - want[3]).abs()
+                     / want[3].abs().clamp(min=1e-3)).max())
+    err_k = max(scaled(g, r) for g, r in zip(got, ref))
+    err_p = max(scaled(t, r) for t, r in zip(want, ref))
+    say(f"ns_fused_step: input rho max {float(want[3].max()):.3e} min "
+        f"{float(want[3].min()):.3e} over h0 x 1...100")
+    say(f"ns_fused_step: |got - want| / (1 + |want|) {err_tw:.3e} (bar "
+        f"2e-5), rho rel {rho_rel:.3e} (bar 2e-5), abs {abs_tw:.3e}")
+    say(f"ns_fused_step: against float64, kernel {err_k:.3e} vs plain "
+        f"{err_p:.3e} (bar: kernel <= 2 x plain)")
+    for g, name in zip(got, names):
+        check(bool(torch.isfinite(g).all()), f"ns_fused_step {name} is not "
+              "finite")
+    check(err_tw <= 2e-5, f"ns_fused_step differs from its twin by {err_tw}")
+    check(rho_rel <= 2e-5, f"ns_fused_step rho differs by {rho_rel}")
+    check(err_k <= 2.0 * err_p, f"ns_fused_step float64 error {err_k} over "
+          f"twice the plain version's {err_p}")
+
+    # four chained kernel steps never raise max rho, and two runs of the
+    # chain give the same bits (the Frobenius sums have a fixed order)
+    def chain():
+        Pc, rhos = P, []
+        for _ in range(4):
+            *Pc, rho = cuda_ns.ns_fused_step(J, *Pc, h, **eig, workspace=ws)
+            rhos.append(rho)
+        return [r.clone() for r in rhos], Pc[0].clone()
+
+    rhos, pr_a = chain()
+    rhos_b, pr_b = chain()
+    tops = [float(r.max()) for r in rhos]
+    say("ns_fused_step: max rho over four chained steps "
+        + " ".join(f"{t:.3e}" for t in tops))
+    for prev, nxt in zip(tops, tops[1:]):
+        check(nxt <= prev + 1e-6, f"chained steps raised max rho: {tops}")
+    check(all(torch.equal(a, b) for a, b in zip(rhos, rhos_b))
+          and torch.equal(pr_a, pr_b), "ns_fused_step is not reproducible")
+
+    # ragged edges: n = 24 (one partial tile) and n = 80 (the CH4 width)
+    rng = np.random.default_rng(SEED)
+    for Bs, ns in ((3, 24), (16, 80)):
+        Js = torch.as_tensor(
+            (-np.eye(ns) * rng.uniform(1.0, 50.0, (Bs, 1, 1))
+             + 0.3 * rng.standard_normal((Bs, ns, ns))).astype(np.float32),
+            device=dev)
+        hs = torch.as_tensor(rng.uniform(0.005, 0.02, Bs).astype(np.float32),
+                             device=dev)
+        Ps = cuda_ns.ns_cold_start(Js, hs, **eig)
+        g_s = cuda_ns.ns_fused_step(Js, *Ps, hs, **eig)
+        w_s = cuda_ns.ns_fused_step_twin(Js, *Ps, hs, *eig.values())
+        e_s = max(scaled(a, b) for a, b in zip(g_s, w_s))
+        say(f"ns_fused_step: n = {ns}, B = {Bs}: {e_s:.3e} (bar 2e-5)")
+        check(e_s <= 2e-5, f"ns_fused_step at n = {ns} differs by {e_s}")
+
+    def three_bmm():
+        """The concatenated torch.bmm formulation of the same step
+        (rmt_tpu/solvers/stiff_ensemble.py, the path without the kernel):
+        J [Pr|Pcr|Pci], Pcr [MPc_r|MPc_i], Pci [MPc_r|MPc_i] and Pr MPr."""
+        Pr, Pcr, Pci = P
+        hh = h[:, None, None]
+        JP = torch.bmm(J, torch.cat([Pr, Pcr, Pci], dim=-1))
+        MPr = Pr - (eig["gamma"] * hh) * JP[..., :n]
+        MPc_r = Pcr - hh * (eig["mu_r"] * JP[..., n:2 * n]
+                            - eig["mu_i"] * JP[..., 2 * n:])
+        MPc_i = Pci - hh * (eig["mu_r"] * JP[..., 2 * n:]
+                            + eig["mu_i"] * JP[..., n:2 * n])
+        eye = torch.eye(n, device=dev)
+        res_r = torch.sqrt(torch.mean((eye - MPr) ** 2, dim=(-1, -2)) * n)
+        res_c = torch.sqrt((torch.mean((eye - MPc_r) ** 2, dim=(-1, -2))
+                            + torch.mean(MPc_i ** 2, dim=(-1, -2))) * n)
+        Mc = torch.cat([MPc_r, MPc_i], dim=-1)
+        Ar, Ai = torch.bmm(Pcr, Mc), torch.bmm(Pci, Mc)
+        return (2 * Pr - torch.bmm(Pr, MPr),
+                2 * Pcr - (Ar[..., :n] - Ai[..., n:]),
+                2 * Pci - (Ai[..., :n] + Ar[..., n:]),
+                torch.maximum(res_r, res_c))
+
+    lib = three_bmm()
+    e_lib = max(scaled(a, b) for a, b in zip(lib, want))
+    check(e_lib <= 2e-5, f"the bmm formulation differs from the twin by "
+          f"{e_lib}")
+    # bound: 8 products of 2 n^3 a member; 4 matrices in, 3 out
+    return {"ns_fused_step": dict(
+        max_abs_err=abs_tw,
+        ms=time_ms(torch, lambda: cuda_ns.ns_fused_step(
+            J, *P, h, **eig, workspace=ws)),
+        plain_ms=time_ms(torch, lambda: cuda_ns.ns_fused_step_twin(
+            J, *P, h, *eig.values())),
+        library_ms=time_ms(torch, three_bmm),
+        **bound(4 * (7 * Bn * n * n + 2 * Bn), 16 * n ** 3 * Bn))}
+
+
+def probe_layout(np, b, offsets):
+    """Sweep offsets for b members with the reference probes spliced in at
+    evenly spaced indices (bench.py:_probe_layout)."""
+    sweep = np.linspace(-5.0, 5.0, b)
+    idx = np.round(np.linspace(0, b - 1, len(offsets))).astype(int)
     sweep[idx] = offsets
+    return sweep, idx
+
+
+def sweep_phase(torch, np, mi, run, counts, dev, *, name, chem, b, opts,
+                bar, kernels):
+    """One leg of bench.py at b members with the reference probes of
+    bench_ref.npz spliced in, probes recorded (out_members). It runs
+    twice: the first run pays the process's one-time CUDA and library
+    set-up; the second is the timed one, and the kernel launch counts are
+    reset just before it and read just after it. Every kernel of the leg
+    must have launched in the timed run."""
+    with np.load(os.path.join(ROOT, "bench_ref.npz")) as z:
+        offsets, ref_ys, t_base = (z[f"{chem}_offsets"], z[f"{chem}_ys"],
+                                   float(z[f"{chem}_t_base"]))
+    sweep, idx = probe_layout(np, b, offsets)
 
     def integrate(label):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         ys_sel, y_fin, stats = run(mi, {"T0": t_base + sweep},
-                                   out_members=idx, device=dev, **F32X)
+                                   out_members=idx, device=dev, **opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_seg = ys_sel.shape[0] - 1
@@ -276,17 +483,23 @@ def sweep_phase(torch, np, mi, run, counts, dev):
         att = (stats.n_accepted + stats.n_rejected).cpu().numpy()
         got = ys_sel.double().cpu().numpy()
         rel = np.abs(got - ref_ys) / np.maximum(np.abs(ref_ys), 1e-7)
-        say(f"sweep ({label}): B {B}, wall {wall:.3f} s, members/s "
-            f"{B / wall:.3f}")
-        say(f"sweep ({label}): attempts mean {att.mean():.1f} max "
-            f"{int(att.max())}; unfinished {unfinished}")
-        say(f"sweep ({label}): max_rel_err {rel.max():.4e} mean_rel_err "
-            f"{rel.mean():.4e} over {len(idx)} probes (bar 1e-6)")
+        say(f"{name} ({label}): B {b}, wall {wall:.3f} s, members/s "
+            f"{b / wall:.3f}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        say(f"{name} ({label}): attempts mean {att.mean():.1f} max "
+            f"{int(att.max())}; unfinished {unfinished}; rejects conv "
+            f"{int(stats.n_rej_conv.sum())} err {int(stats.n_rej_err.sum())} "
+            f"rho {int(stats.n_rej_rho.sum())}; Jacobian refreshes "
+            f"{stats.n_jev - 1}, cold rescues {stats.n_rescue}")
+        say(f"{name} ({label}): max_rel_err {rel.max():.4e} mean_rel_err "
+            f"{rel.mean():.4e} over {len(idx)} probes (bar {bar:g})")
         check(unfinished == 0,
-              f"{unfinished}/{B} members exhausted the budget")
-        check(bool(torch.isfinite(y_fin).all()), "non-finite final states")
-        check(tuple(y_fin.shape) == (B, ref_ys.shape[2]), "final state shape")
-        check(rel.max() <= 1e-6, f"max_rel_err {rel.max()} > 1e-6")
+              f"{name}: {unfinished}/{b} members exhausted the budget")
+        check(bool(torch.isfinite(y_fin).all()),
+              f"{name}: non-finite final states")
+        check(tuple(y_fin.shape) == (b, ref_ys.shape[2]),
+              f"{name}: final state shape")
+        check(rel.max() <= bar, f"{name}: max_rel_err {rel.max()} > {bar:g}")
         return stats
 
     integrate("first run")
@@ -295,14 +508,29 @@ def sweep_phase(torch, np, mi, run, counts, dev):
             table[k] = 0
     stats = integrate("timed run")
     launches = {k: v for table in counts for k, v in table.items()}
-    n_attempt_calls = (stats.n_jev - 1) * F32X["j_every"]
-    say(f"sweep: lockstep attempt calls {n_attempt_calls}")
     for k, v in launches.items():
-        say(f"sweep: launches {k} {v}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched by the sweep")
-    check(launches["block_factor"] == n_attempt_calls,
-          "block_factor did not run once per attempt")
+        say(f"{name}: launches {k} {v}")
+    for k in kernels:
+        check(launches[k] > 0, f"kernel {k} was not launched by {name}")
+    for k in set(launches) - set(kernels):
+        check(launches[k] == 0, f"kernel {k} is not on the path of {name}")
+    n_chunks = stats.n_jev - 1
+    if "block_factor" in kernels:
+        check(launches["block_factor"] == n_chunks * opts["j_every"],
+              f"{name}: block_factor did not run once per attempt")
+    if "ns_fused_step" in kernels:
+        # per chunk: the refresh and one maintenance step per attempt;
+        # each cold rescue repeats a refresh; the refresh queued ahead of
+        # the early-exit read is dropped when every member has finished
+        dropped = int(n_chunks < opts["max_steps"] // opts["j_every"])
+        want = (n_chunks * (opts["ns_refresh"]
+                            + opts["j_every"] * opts["ns_step"])
+                + opts["ns_refresh"] * (stats.n_rescue + dropped))
+        say(f"{name}: ns_fused_step launches expected {want} ({n_chunks} "
+            f"chunks, {stats.n_rescue} rescues, {dropped} dropped refresh)")
+        check(launches["ns_fused_step"] == want,
+              f"{name}: ns_fused_step launched {launches['ns_fused_step']} "
+              f"times, expected {want}")
     return launches
 
 
@@ -316,9 +544,9 @@ def main():
     sys.path.insert(0, ROOT)
     from torch.func import vmap
 
-    from rmt_tpu_torch.cases.dme_case import make_model_input
+    from rmt_tpu_torch.cases import ch4_case, dme_case
     from rmt_tpu_torch.models import homo
-    from rmt_tpu_torch.ops import _build, cuda_block, cuda_rhs
+    from rmt_tpu_torch.ops import _build, cuda_block, cuda_ns, cuda_rhs
     from rmt_tpu_torch.parallel import (prepare_n2_ensemble,
                                         run_n2_ensemble_lockstep)
     from rmt_tpu_torch.parallel.ensemble import _cast
@@ -327,32 +555,76 @@ def main():
     dev = torch.device("cuda:0")
     card = header(torch)
 
-    mi = make_model_input(model="N2")
+    mi = dme_case.make_model_input(model="N2")
+    mi_ch4 = ch4_case.make_model_input(model="N2")
     ens = prepare_n2_ensemble(mi, {"T0": 523.0 + np.linspace(-5.0, 5.0, B)},
                               device=dev)
-    rhs_fns = {
-        mode: cuda_rhs.build_n2_fused(ens.spec, accurate_rates=mode,
-                                      ko_keys=ens.ko_keys)
-        for mode in (False, "df32")}
+    with np.load(os.path.join(ROOT, "bench_ref.npz")) as z:
+        b_ch4 = len(z["ch4_offsets"])
+        t0_ch4 = float(z["ch4_t_base"]) + z["ch4_offsets"]
+    ens_ch4 = prepare_n2_ensemble(mi_ch4, {"T0": t0_ch4}, device=dev)
+
+    def fused(e):
+        return {mode: cuda_rhs.build_n2_fused(e.spec, accurate_rates=mode,
+                                              ko_keys=e.ko_keys)
+                for mode in (False, "df32")}
+
+    rhs_fns, rhs_ch4 = fused(ens), fused(ens_ch4)
     t0 = time.perf_counter()
     _build.compile_sources(
-        [("block", (_build.CSRC / "block.cu").read_text())]
-        + [(f.kernel_name, f.source()) for f in rhs_fns.values()])
+        [("block", (_build.CSRC / "block.cu").read_text()),
+         cuda_ns.build_job()]
+        + [(f.kernel_name, f.source())
+           for f in (*rhs_fns.values(), *rhs_ch4.values())])
     say(f"build: {time.perf_counter() - t0:.1f} s (nvcc, all sources at "
         f"once, into {_build.build_dir()})")
+    ns_log = _build.library_path(*cuda_ns.build_job()).with_suffix(".log")
+    for line in ns_log.read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"build: ns.cu: {line.strip()}")
 
-    res = block_phase(torch, np, cuda_block, _transformed_tableau(), dev)
+    tableau = _transformed_tableau()
+    res = block_phase(torch, np, cuda_block, tableau, dev)
     f64 = torch.float64
     rhs64_b = vmap(homo.make_n2_rhs(ens.spec), in_dims=(None, 0, ens.axes, 0))
     p64, d64 = _cast(ens.params, f64), _cast(ens.d, f64)
     res.update(rhs_phase(torch, np, cuda_rhs, rhs_fns, ens,
                          lambda y: rhs64_b(0.0, y.to(f64), p64, d64)))
-    for k, v in res.items():
-        say(f"time {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} "
-            f"ms (median of {REPS} x {GROUP} calls) on {card}")
+    rhs_guard(torch, np, cuda_rhs, rhs_ch4, ens_ch4)
 
-    launches = sweep_phase(torch, np, mi, run_n2_ensemble_lockstep,
-                           (cuda_block.LAUNCHES, cuda_rhs.LAUNCHES), dev)
+    # the f32 leg's Jacobian and first step, as the integrator forms them
+    jacB = vmap(homo.make_n2_colored_jacobian(ens.spec),
+                in_dims=(0, 0, ens.axes, 0))
+    t_first = torch.full((B,), float(ens.ts[0]), device=dev)
+    J = jacB(t_first, ens.y0, ens.params, ens.d).contiguous()
+    j_norm = torch.amax(torch.sum(torch.abs(J), dim=-1), dim=-1)
+    gamma = float(tableau[4][0].real)
+    h0 = torch.clamp(0.05 / (gamma * j_norm + 1e-30),
+                     max=1e-3 * float(ens.ts[-1] - ens.ts[0]))
+    res.update(ns_phase(torch, np, cuda_ns, tableau, J, h0, dev))
+    del J
+    for k, v in res.items():
+        lib = ("none" if v["library_ms"] is None
+               else f"{v['library_ms']:.4f} ms")
+        say(f"time {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} "
+            f"ms, library {lib}, bound {v['bound_ms']:.4f} ms by "
+            f"{v['bound_by']} (median of {REPS} x {GROUP} calls) on {card}")
+
+    counts = (cuda_block.LAUNCHES, cuda_rhs.LAUNCHES, cuda_ns.LAUNCHES)
+    by_path = {
+        "f32x": sweep_phase(
+            torch, np, mi, run_n2_ensemble_lockstep, counts, dev,
+            name="f32x sweep", chem="dme", b=B, opts=F32X, bar=1e-6,
+            kernels=F32X_KERNELS),
+        "f32": sweep_phase(
+            torch, np, mi, run_n2_ensemble_lockstep, counts, dev,
+            name="f32 sweep", chem="dme", b=B, opts=F32, bar=5e-5,
+            kernels=F32_KERNELS),
+        "ch4_f32x": sweep_phase(
+            torch, np, mi_ch4, run_n2_ensemble_lockstep, counts, dev,
+            name="ch4 guard", chem="ch4", b=b_ch4, opts=F32X, bar=1e-6,
+            kernels=F32X_KERNELS),
+    }
 
     sources = {
         "block_factor": ("rmt_tpu_torch/csrc/block.cu",
@@ -365,9 +637,15 @@ def main():
                          "rmt_tpu/ops/pallas_rhs.py:340"),
         "n2_rhs_df32": ("rmt_tpu_torch/ops/cuda_rhs.py",
                         "rmt_tpu/ops/pallas_rhs.py:340"),
+        "ns_fused_step": ("rmt_tpu_torch/csrc/ns.cu",
+                          "rmt_tpu/ops/pallas_ns.py:112"),
     }
+    # launches: the two DME legs' timed runs together (the main paths at
+    # full width); each path's own count rides along
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=launches[k], **res[k])
+                    launches=by_path["f32x"][k] + by_path["f32"][k],
+                    launches_by_path={p: v[k] for p, v in by_path.items()},
+                    **res[k])
                for k, (src, rep) in sources.items()]
     say(json.dumps({"kernels": kernels}))
     say(card)

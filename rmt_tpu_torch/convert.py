@@ -8,6 +8,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from . import config
+
 
 def params_from_jax(tree: Mapping[str, Any], device=None,
                     dtype: torch.dtype = torch.float64) -> dict[str, Any]:
@@ -16,8 +18,10 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
     tree is the dict of rmt_tpu.models.homo.build_params (with its
     kinetic_overrides sub-dict) or a batched variant of it; leaves are
     numpy arrays, or anything np.asarray reads (jax arrays included).
-    Every leaf becomes a tensor of ``dtype`` on ``device``.
+    Every leaf becomes a tensor of ``dtype`` on ``device`` (default:
+    config.default_device(), as every other entry point).
     """
+    device = device if device is not None else config.default_device()
     out = {}
     for key, val in tree.items():
         if isinstance(val, Mapping):

@@ -314,6 +314,19 @@ def make_n2_rhs(spec: HomoSpec, frozen_pressure_jac: bool = False,
     return rhs
 
 
+def make_n2_colored_jacobian(spec: HomoSpec):
+    """Per-member dense (n, n) Jacobian of the N2 RHS for the
+    Newton-Schulz preconditioners: with the pressure march frozen it is
+    block bidiagonal in z, so 2*var_no colored JVPs
+    (ops.jacobian.colored_jacobian) give it exactly."""
+    from ..ops.jacobian import colored_jacobian
+
+    return colored_jacobian(
+        make_n2_rhs(spec, frozen_pressure_jac=True), spec.var_no_n2,
+        spec.z_no
+    )
+
+
 def make_n2_bidiag_blocks(spec: HomoSpec):
     """Per-member (Jd, Jl) block Jacobian of the N2 RHS, each
     (z_no, var_no, var_no), gathered from 2*var_no colored JVPs

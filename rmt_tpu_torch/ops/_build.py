@@ -2,10 +2,10 @@
 # with ctypes (route (b): a shared library with a plain C interface, no
 # PyTorch headers, so a build takes seconds).
 #
-# Each library is keyed by a hash of its full source text and flags and
-# built into the build directory (RMT_TORCH_BUILD_DIR, default build/ at
-# the repository root, which git ignores). A source that is already built
-# is loaded as it is. Nothing here runs at import time.
+# Each library is keyed by a hash of its full source text and its own
+# flags and built into the build directory (RMT_TORCH_BUILD_DIR, default
+# build/ at the repository root, which git ignores). A source that is
+# already built is loaded as it is. Nothing here runs at import time.
 
 from __future__ import annotations
 
@@ -19,14 +19,22 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-    # every product and sum rounds on its own, as in the plain-PyTorch
-    # twins (and as the df32 error-free transforms require)
-    "-fmad=false",
-    "-Xptxas", "-v",
-)
+
+def _flags(fmad: bool):
+    return (
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC",
+        f"-fmad={'true' if fmad else 'false'}",
+        "-Xptxas", "-v",
+    )
+
+
+# The default: every product and sum rounds on its own, as in the
+# plain-PyTorch twins (and as the df32 error-free transforms require).
+NVCC_FLAGS = _flags(fmad=False)
+# For a kernel of dense float32 products held to its twin by a tolerance,
+# not bit for bit: contraction into FFMA doubles its arithmetic rate.
+NVCC_FLAGS_FMA = _flags(fmad=True)
 
 _loaded: dict[Path, ctypes.CDLL] = {}
 
@@ -46,22 +54,24 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(name: str, source: str) -> Path:
+def library_path(name: str, source: str, flags=NVCC_FLAGS) -> Path:
     key = hashlib.sha256(
-        (source + "\0" + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:16]
+        (source + "\0" + " ".join(flags)).encode()).hexdigest()[:16]
     return build_dir() / f"{name}-{key}.so"
 
 
 def compile_sources(jobs) -> list[Path]:
-    """Build every (name, source_text) job that is not built yet, all
-    nvcc processes started together. Returns the library paths; raises
-    with the compiler's output if any build fails. Each build's compiler
-    report (registers, spills) is kept beside its library as .log."""
+    """Build every (name, source_text[, flags]) job that is not built yet
+    (flags default to NVCC_FLAGS), all nvcc processes started together.
+    Returns the library paths; raises with the compiler's output if any
+    build fails. Each build's compiler report (registers, spills) is kept
+    beside its library as .log."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     paths, running = [], []
-    for name, source in jobs:
-        lib = library_path(name, source)
+    for name, source, *rest in jobs:
+        flags = rest[0] if rest else NVCC_FLAGS
+        lib = library_path(name, source, flags)
         paths.append(lib)
         if lib.exists():
             continue
@@ -69,7 +79,7 @@ def compile_sources(jobs) -> list[Path]:
         src.write_text(source)
         fd, tmp = tempfile.mkstemp(dir=out, suffix=".so")
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [nvcc(), *flags, "-o", tmp, str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((lib, tmp, proc))
@@ -87,11 +97,11 @@ def compile_sources(jobs) -> list[Path]:
     return paths
 
 
-def load(name: str, source: str) -> ctypes.CDLL:
+def load(name: str, source: str, flags=NVCC_FLAGS) -> ctypes.CDLL:
     """The library built from ``source``, building it first if needed."""
-    lib = library_path(name, source)
+    lib = library_path(name, source, flags)
     if lib not in _loaded:
-        compile_sources([(name, source)])
+        compile_sources([(name, source, flags)])
         _loaded[lib] = ctypes.CDLL(str(lib))
     return _loaded[lib]
 

@@ -1,0 +1,161 @@
+# Fused Newton-Schulz preconditioner update (port of
+# rmt_tpu/ops/pallas_ns.py): the wrapper of the CUDA kernel in csrc/ns.cu
+# beside its plain-PyTorch twin.
+#
+# The lockstep integrator keeps approximate inverses Pr ~ (I - h*gamma*J)^-1
+# and Pcr + i Pci ~ (I - h*mu*J)^-1 per member and refreshes them once per
+# attempt. One step is P' = 2P - P(MP) for both systems: three J-products,
+# the M P assembly, the Frobenius residual of the INPUT iterate (the
+# certificate's input), and five P(MP) products.
+#
+# A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
+# twin. The two agree up to float32 summation order (the twin's products
+# are torch.matmul), so they are held to a tolerance, not bit for bit.
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+LAUNCHES = {"ns_fused_step": 0}
+
+_f32 = torch.float32
+_vp = ctypes.c_void_p
+
+
+@functools.cache
+def _lib():
+    """The kernel's library, built at first use (once a process)."""
+    lib = _build.load(*build_job())
+    lib.ns_fused_step_launch.argtypes = (
+        [_vp] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [_vp])
+    lib.ns_fused_step_launch.restype = ctypes.c_int
+    return lib
+
+
+def build_job():
+    """(name, source, flags) of the kernel's library for
+    _build.compile_sources. Built with FFMA contraction on: the kernel is
+    dense float32 products, held to its twin by a tolerance."""
+    return ("ns", (_build.CSRC / "ns.cu").read_text(), _build.NVCC_FLAGS_FMA)
+
+
+def ns_fused_step_twin(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i):
+    """One Newton-Schulz iteration in plain PyTorch (full-float32
+    torch.matmul). Returns (Pr', Pcr', Pci', rho_pre)."""
+    n = J.shape[-1]
+    h = h32[:, None, None]
+    g, mr, mi = gamma * h, mu_r * h, mu_i * h
+    JP = torch.matmul(J, Pr)
+    JPr = torch.matmul(J, Pcr)
+    JPi = torch.matmul(J, Pci)
+    MPr = Pr - g * JP
+    MPc_r = Pcr - (mr * JPr - mi * JPi)
+    MPc_i = Pci - (mr * JPi + mi * JPr)
+    eye = torch.eye(n, dtype=J.dtype, device=J.device)
+    # residual of the CURRENT iterate: ||.||_F / sqrt(n)
+    dr = eye - MPr
+    dc = eye - MPc_r
+    inv_n = 1.0 / n
+    res_r = torch.sqrt(torch.sum(dr * dr, dim=(-1, -2)) * inv_n)
+    res_c = torch.sqrt((torch.sum(dc * dc, dim=(-1, -2))
+                        + torch.sum(MPc_i * MPc_i, dim=(-1, -2))) * inv_n)
+    rho = torch.maximum(res_r, res_c)
+    Ar = torch.matmul(Pcr, MPc_r) - torch.matmul(Pci, MPc_i)
+    Ai = torch.matmul(Pci, MPc_r) + torch.matmul(Pcr, MPc_i)
+    return (2.0 * Pr - torch.matmul(Pr, MPr), 2.0 * Pcr - Ar,
+            2.0 * Pci - Ai, rho)
+
+
+def ns_cold_start(J, h32, *, gamma, mu_r, mu_i):
+    """Guaranteed-convergent Newton-Schulz seeds P0 = M^H / (|M|_1 |M|_inf)
+    for Mr = I - h*gamma*J and Mc = I - h*(mu_r + i mu_i)*J, in plain
+    PyTorch. J (B, n, n), h32 (B,) float32; returns the three seeds (real
+    system, complex system's real and imaginary part), contiguous. A
+    diverged iterate never recovers (its residual squares), so failed
+    members are re-seeded from these."""
+    n = J.shape[-1]
+    h = h32[:, None, None]
+    eye = torch.eye(n, dtype=J.dtype, device=J.device)
+    Mr = eye - (gamma * h) * J
+    Mcr = eye - h * mu_r * J
+    Mci = -h * mu_i * J
+
+    def scale(mag):
+        norm1 = torch.amax(torch.sum(mag, dim=-2), dim=-1)
+        norminf = torch.amax(torch.sum(mag, dim=-1), dim=-1)
+        return (norm1 * norminf)[:, None, None]
+
+    def conj_t(A, s, sign=1.0):
+        return (sign * A.transpose(-1, -2) / s).contiguous()
+
+    s_c = scale(torch.sqrt(Mcr ** 2 + Mci ** 2))
+    return (conj_t(Mr, scale(Mr.abs())), conj_t(Mcr, s_c),
+            conj_t(Mci, s_c, -1.0))
+
+
+class Workspace:
+    """Device buffers of a run of kernel steps, allocated once: the
+    scratch (B, 3, n, n) of the M P intermediates and two sets of output
+    iterates to alternate between, so that a chain of steps allocates
+    nothing. The set a step writes is the one its input does not live
+    in."""
+
+    def __init__(self, B, n, device):
+        self.scratch = torch.empty((B, 3, n, n), dtype=_f32, device=device)
+        self.sets = [tuple(torch.empty((B, n, n), dtype=_f32, device=device)
+                           for _ in range(3)) for _ in range(2)]
+
+    def out_for(self, Pr):
+        mine = self.sets[0][0].data_ptr()
+        return self.sets[1] if Pr.data_ptr() == mine else self.sets[0]
+
+
+def ns_fused_step(J, Pr, Pcr, Pci, h32, *, gamma, mu_r, mu_i, workspace=None):
+    """One fused Newton-Schulz iteration for the whole ensemble.
+
+    J, Pr, Pcr, Pci: (B, n, n) float32; h32: (B,) float32. Returns
+    (Pr', Pcr', Pci', rho_pre), rho_pre (B,) the residual of the INPUT
+    iterate. With a Workspace the outputs are its buffers (valid until
+    the second next step through it); without, they are new tensors.
+    """
+    if J.device.type != "cuda":
+        return ns_fused_step_twin(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i)
+    if J.dim() != 3 or J.shape[1] != J.shape[2]:
+        raise ValueError(f"ns_fused_step: J shape {tuple(J.shape)} is not "
+                         "(B, n, n)")
+    B, n, _ = J.shape
+    for t, shape in ((J, (B, n, n)), (Pr, (B, n, n)), (Pcr, (B, n, n)),
+                     (Pci, (B, n, n)), (h32, (B,))):
+        if t.device != J.device or t.dtype != _f32 or not t.is_contiguous():
+            raise ValueError("ns_fused_step: every operand must be a "
+                             f"contiguous float32 tensor on {J.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"ns_fused_step: shape {tuple(t.shape)} != {shape}")
+    if workspace is None:
+        scratch = torch.empty((B, 3, n, n), dtype=_f32, device=J.device)
+        outs = tuple(torch.empty_like(J) for _ in range(3))
+    else:
+        scratch, outs = workspace.scratch, workspace.out_for(Pr)
+        if (tuple(scratch.shape) != (B, 3, n, n)
+                or scratch.device != J.device):
+            raise ValueError("ns_fused_step: the workspace was made for "
+                             "another shape or device")
+    # phase 2 of the kernel reads the inputs while the outputs are written
+    ins = {t.data_ptr() for t in (J, Pr, Pcr, Pci)}
+    if any(o.data_ptr() in ins for o in outs):
+        raise ValueError("ns_fused_step: an output buffer aliases an input")
+    rho = torch.empty((B,), dtype=_f32, device=J.device)
+    err = _lib().ns_fused_step_launch(
+        J.data_ptr(), Pr.data_ptr(), Pcr.data_ptr(), Pci.data_ptr(),
+        h32.data_ptr(), scratch.data_ptr(), *(o.data_ptr() for o in outs),
+        rho.data_ptr(), B, n, gamma, mu_r, mu_i,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ns_fused_step")
+    LAUNCHES["ns_fused_step"] += 1
+    return (*outs, rho)

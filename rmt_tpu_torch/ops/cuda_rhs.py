@@ -754,6 +754,67 @@ def _cp_c(c):
             f"((({c3} * T_re) * T_re) * T_re))")
 
 
+# -- operation count ------------------------------------------------------------
+
+# float32 operations of one double-float32 operation, counted from
+# csrc/df32.cuh (two_sum 6, quick_two_sum 3, split 4, two_prod 17)
+_DF_OPS = {"add": 11, "sub": 11, "mul": 24, "div": 41, "neg": 0,
+           "call:exp": 125, "call:log": 90, "call:log10": 114,
+           "call:sqrt": 42}
+
+
+def _int_pow_muls(n):
+    n = abs(int(n))
+    return max(n.bit_length() + bin(n).count("1") - 2, 0)
+
+
+def _node_ops(op, args, kind):
+    """float32 operations of one DAG node. A plain add, multiply, divide
+    or libm call counts 1; a pair operation counts its error-free
+    transforms."""
+    if op == "in":
+        return 0
+    if kind != "df":
+        return 0 if op == "neg" else 1
+    if op == "pow" or op == "call:pow":
+        x, y = args
+        if _is_int(y):
+            inv = _DF_OPS["div"] if float(y) < 0 else 0
+            return _int_pow_muls(y) * _DF_OPS["mul"] + inv
+        log = 0 if _number(x) else _DF_OPS["call:log"]
+        return _DF_OPS["call:exp"] + _DF_OPS["mul"] + log
+    if op == "call:log" and args[1] is not None:
+        return 2 * _DF_OPS["call:log"] + _DF_OPS["div"]
+    return _DF_OPS[op]
+
+
+def operation_count(spec, accurate_rates=False, ko_keys=()) -> int:
+    """float32 operations one (row, node) of the fused RHS needs: the
+    traced rate program node by node, plus the fixed part of n2_core_ml
+    counted from its steps (the pressure march at its mean depth over the
+    nodes). The roofline's operation bound is this times rows times
+    nodes over the card's float32 rate."""
+    df32_mode = accurate_rates == "df32"
+    g, _ = trace_rates(spec, df32_mode, tuple(ko_keys))
+    ops = sum(_node_ops(*node) for node in g.nodes)
+    nc, nz, nr = spec.n_comp, spec.z_no, spec.stoich.n_rxn
+    K = _Consts(spec)
+    acc, mul = (_DF_OPS["add"], _DF_OPS["mul"]) if df32_mode else (1, 1)
+    nnz = int(np.count_nonzero(K.nu))
+    ops += 5 * nc + 2 * (nc - 1) + 3      # clamps, co_re, ctot, mofri, MW
+    ops += 26                             # Ergun terms, rg_t, a_co, b_co
+    ops += 3 * (nz - 1) // 2 + 4          # pressure march, P_z, density
+    ops += nnz * mul + max(nnz - nc, 0) * acc + (nc if df32_mode else 0)
+    ops += 13 * nc + 2 * nc + 1           # Cp polynomials, mixture Cp
+    ops += 6 * nc + 7                     # convection rows and constants
+    if not spec.iso_thermal:
+        n_eq, nnz_eq = len(K.cp_eq), int(np.count_nonzero(K.eq_nu))
+        ops += 13 * n_eq + 2 * nnz_eq + 2 * nr + 1    # heat of reaction
+        ops += nr * mul + (nr - 1) * acc + (1 if df32_mode else 0)
+        ops += 3 + 14                     # exchange, temperature row
+    return int(ops)
+
+
 # -- the wrapper ----------------------------------------------------------------
 
 def build_n2_fused(spec, accurate_rates=False, ko_keys=()):
@@ -809,4 +870,5 @@ def build_n2_fused(spec, accurate_rates=False, ko_keys=()):
 
     rhs_f.source = source
     rhs_f.kernel_name = name
+    rhs_f.operations = lambda: operation_count(spec, accurate_rates, ko_keys)
     return rhs_f

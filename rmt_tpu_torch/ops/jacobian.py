@@ -1,5 +1,6 @@
 # Colored (sparse) Jacobians for method-of-lines RHS functions (port of
-# rmt_tpu/ops/jacobian.py, the banded block-bidiagonal part).
+# rmt_tpu/ops/jacobian.py, the banded block-bidiagonal part: the dense
+# matrix on its sparsity pattern, and the blocks gathered directly).
 #
 # Backward-difference MoL couplings are block-bidiagonal in the axial node
 # index: output (v, z) depends on inputs (v', z) and (v', z-1). A
@@ -25,6 +26,30 @@ def banded_coloring(var_no: int, z_no: int):
     V[colors, idx] = 1.0
     mask = (z_of[:, None] == z_of[None, :]) | (z_of[:, None] == z_of[None, :] + 1)
     return colors, V, mask.astype(np.float64)
+
+
+def colored_jacobian_from(rhs_flat, coloring):
+    """jac(t, y, *args) -> (n, n) from an explicit (colors, V, mask)
+    coloring (see banded_coloring): one JVP per color, reconstructed
+    exactly on the sparsity pattern."""
+    colors, V, mask = coloring
+    colors_t = torch.as_tensor(colors)
+
+    def jac(t, y, *args):
+        fun = lambda yy: rhs_flat(t, yy, *args)
+        V_y = torch.as_tensor(V, dtype=y.dtype, device=y.device)
+        jv = vmap(lambda tangent: jvp(fun, (y,), (tangent,))[1])(V_y)
+        mask_y = torch.as_tensor(mask, dtype=y.dtype, device=y.device)
+        return jv[colors_t.to(y.device), :].T * mask_y
+
+    return jac
+
+
+def colored_jacobian(rhs_flat, var_no: int, z_no: int):
+    """jac(t, y, *args) -> (n, n) from 2*var_no JVPs of rhs_flat, which
+    must have the block-bidiagonal MoL sparsity (detach weak global
+    couplings such as an axial pressure march)."""
+    return colored_jacobian_from(rhs_flat, banded_coloring(var_no, z_no))
 
 
 def colored_bidiag_blocks(rhs_flat, var_no: int, z_no: int):

@@ -7,11 +7,14 @@
 # constants through kinetic overrides -- integrates as one ensemble on one
 # device. Stage residuals go through the fused N2 RHS (ops/cuda_rhs.py:
 # the generated CUDA kernel for tensors on the card, its plain twin on
-# the CPU); the stage systems are solved exactly by the block kernels
-# (ops/cuda_block.py) from Jacobian blocks gathered by colored JVPs.
+# the CPU). The stage systems are solved either by Newton-Schulz
+# preconditioners kept warm by the fused kernel of ops/cuda_ns.py, from
+# the dense colored Jacobian, or (exact_solve=True) exactly by the block
+# kernels of ops/cuda_block.py, from Jacobian blocks gathered by colored
+# JVPs.
 #
-# Left for later ports: Newton-Schulz mode (exact_solve=False),
-# accurate_rates=True/"full", batched_rhs, microbatch and mesh sharding.
+# Left for later ports: accurate_rates=True/"full", batched_rhs,
+# microbatch and mesh sharding.
 
 from __future__ import annotations
 
@@ -135,9 +138,11 @@ def run_n2_ensemble_lockstep(
 ):
     """N2 dynamic ensemble on the lockstep Radau integrator, in float32.
 
-    exact_solve=True solves the Radau stage systems exactly through the
-    block-bidiagonal structure of the MoL Jacobian (the only stage-solve
-    mode of the port so far).
+    exact_solve=False (the default) solves the Radau stage systems with
+    float32 Newton-Schulz preconditioners built from the dense colored
+    Jacobian (ns_refresh / ns_step pass through to the integrator);
+    exact_solve=True solves them exactly through the block-bidiagonal
+    structure of the MoL Jacobian.
 
     accurate_rates="df32" evaluates the kinetics chain, nu@R and the
     heat-of-reaction sum in compensated double-float32 pairs
@@ -153,10 +158,6 @@ def run_n2_ensemble_lockstep(
     stiff_ensemble.odeint_ensemble) the return is (ys_sel, y_final,
     stats).
     """
-    if not exact_solve:
-        raise NotImplementedError(
-            "the port solves stages exactly only: pass exact_solve=True "
-            "(Newton-Schulz mode is not ported)")
     if accurate_rates not in (False, "df32"):
         raise NotImplementedError(
             "the port supports accurate_rates False or 'df32'")
@@ -170,12 +171,15 @@ def run_n2_ensemble_lockstep(
     leaves1, leaves2, ko_keys = e.leaves1, e.leaves2, e.ko_keys
     Bsz, n_state = y0B.shape
 
-    # Jacobian blocks: colored JVPs of the plain float32 RHS with the
-    # pressure march frozen, mapped over members
-    jblB = vmap(homo.make_n2_bidiag_blocks(spec), in_dims=(0, 0, axes, 0))
+    # Jacobian: colored JVPs of the plain float32 RHS with the pressure
+    # march frozen, mapped over members; the blocks alone for the exact
+    # solve, the dense matrix for the Newton-Schulz preconditioners
+    make_jac = (homo.make_n2_bidiag_blocks if exact_solve
+                else homo.make_n2_colored_jacobian)
+    jacB = vmap(make_jac(spec), in_dims=(0, 0, axes, 0))
 
-    def jac_blocks(t, y):
-        return jblB(t, y, p32, dB)
+    def jac(t, y):
+        return jacB(t, y, p32, dB)
 
     # residuals: the fused RHS over member rows (stage-stacked for stages)
     rhs = cuda_rhs.build_n2_fused(
@@ -201,7 +205,10 @@ def run_n2_ensemble_lockstep(
         kw["f_cheap"] = batched(rhs_cheap)
         kw["f_cheap_stages"] = stages(rhs_cheap)
         kw["cheap_sweeps"] = int(cheap_sweeps)
-    kw.setdefault("block", (spec.var_no_n2, spec.z_no))
+    if exact_solve:
+        kw.setdefault("block", (spec.var_no_n2, spec.z_no))
+        kw["jac_blocks"] = jac
+    else:
+        kw["jac"] = jac
     return stiff_ensemble.odeint_ensemble(
-        batched(rhs), y0B, e.ts, rtol=rtol, atol=atol,
-        jac_blocks=jac_blocks, **kw)
+        batched(rhs), y0B, e.ts, rtol=rtol, atol=atol, **kw)

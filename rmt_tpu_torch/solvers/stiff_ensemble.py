@@ -1,26 +1,37 @@
 # Batched lockstep stiff integrator: Radau IIA(5) with eigen-transformed
-# stages and exact block-bidiagonal stage solves (port of the block mode
-# of rmt_tpu/solvers/stiff_ensemble.py::odeint_ensemble).
+# stages (port of rmt_tpu/solvers/stiff_ensemble.py::odeint_ensemble, its
+# Newton-Schulz mode and its bidiagonal block mode).
 #
 # One global adaptive loop runs the whole ensemble with per-member step
 # sizes and masked accept/reject. The 3-stage Radau coefficient matrix is
 # diagonalised once, A = T diag(gamma, mu, mu*) T^-1, which splits the
 # stacked Newton system (I - h A(x)J) dK = R into one real and one complex
-# n x n system per member. The method-of-lines Jacobian is block lower
-# bidiagonal in the axial node, so both systems are solved exactly by the
-# block kernels of ops/cuda_block.py: block_factor once per attempt,
-# block_apply once per Newton sweep, block_apply_real once per attempt for
-# the error estimate. The Jacobian blocks are refreshed once per chunk of
-# j_every attempts and transposed to the kernels' member-last layout then.
+# n x n system per member. Two ways to solve them:
 #
-# jax.lax.scan becomes a Python loop. The only device-to-host read is the
-# early-exit test at the start of each chunk (every member finished), one
-# per chunk of attempts, never one per attempt.
+#   * Newton-Schulz mode (block=None): float32 approximate inverses
+#     Pr ~ (I - h*gamma*J)^-1 and Pcr + i Pci ~ (I - h*mu*J)^-1 ride in
+#     the state and are kept warm by the fused kernel of ops/cuda_ns.py,
+#     ns_step iterations per attempt and ns_refresh after each Jacobian
+#     refresh; a residual certificate rho < 0.5 guards every accepted
+#     step. Applying them to a stage residual is five matvecs, left to
+#     torch.matmul as the reference leaves them to XLA.
+#   * block mode (block=(m, z)): the method-of-lines Jacobian is block
+#     lower bidiagonal in the axial node, so both systems are solved
+#     exactly by the block kernels of ops/cuda_block.py: block_factor once
+#     per attempt, block_apply once per Newton sweep, block_apply_real
+#     once per attempt for the error estimate.
 #
-# Left for later ports: Newton-Schulz mode, dense output, the tridiagonal
-# block mode, the theta-keyed growth cap, the Newton-failure barrier and
-# the reference's tuning arguments (rhs_noise, max_factor,
-# predict_stages), here fixed at the reference's defaults.
+# The Jacobian is refreshed once per chunk of j_every attempts.
+#
+# jax.lax.scan becomes a Python loop with one device-to-host read per
+# chunk of attempts, never one per attempt: the early-exit test (every
+# member finished) and, in Newton-Schulz mode, the cold-rescue test of
+# the refresh travel in the same transfer.
+#
+# Left for later ports: dense output, the tridiagonal block mode, the
+# theta-keyed growth cap, the Newton-failure barrier and the reference's
+# tuning arguments (rhs_noise, max_factor, predict_stages), here fixed at
+# the reference's defaults.
 
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import cuda_block
+from ..ops import cuda_block, cuda_ns
 from .radau import extrap_weights, radau_tableau
 
 _SAFETY = 0.9
@@ -72,7 +83,10 @@ class EnsembleStats(NamedTuple):
     n_rej_conv: torch.Tensor  # (B,) rejections: Newton did not converge
     n_rej_err: torch.Tensor   # (B,) rejections: error estimate > 1
     n_rej_rho: torch.Tensor   # (B,) rejections: converged but uncertified
-                              # (non-finite residual)
+                              # (Newton-Schulz residual >= 0.5, or a
+                              # non-finite Newton residual)
+    n_rescue: int = 0         # Newton-Schulz refreshes that re-seeded some
+                              # member from the cold start
 
 
 def _norm_b(v, scale):
@@ -83,17 +97,25 @@ def _finite_or(x, fill):
     return torch.where(torch.isfinite(x), x, torch.full_like(x, fill))
 
 
-def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
-                    max_steps: int = 1024, newton_iters: int = 6,
-                    j_every: int = 16, f_cheap=None,
+def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
+                    rtol=1e-7, atol=1e-10, max_steps: int = 1024,
+                    newton_iters: int = 6, j_every: int = 16,
+                    ns_refresh: int = 5, ns_step: int = 1, f_cheap=None,
                     cheap_sweeps: int = 0, f_stages=None,
                     f_cheap_stages=None, out_members=None):
     """Integrate a stiff ensemble dy/dt = f(t, y) for every member.
 
-    f is batched: f(t (B,), y (B, n)) -> (B, n). jac_blocks(t, y) ->
-    (Jd, Jl), each (B, z_no, var_no, var_no): the block-bidiagonal
-    Jacobian in the flat state layout v*z_no + z, with block = (var_no,
-    z_no). f_stages / f_cheap_stages: optional all-stages evaluators
+    f is batched: f(t (B,), y (B, n)) -> (B, n).
+
+    Newton-Schulz mode (block=None): jac(t, y) -> (B, n, n) is the
+    batched dense Jacobian; the float32 preconditioners get ns_refresh
+    iterations after each Jacobian refresh and ns_step per attempt.
+
+    Block mode: jac_blocks(t, y) -> (Jd, Jl), each
+    (B, z_no, var_no, var_no): the block-bidiagonal Jacobian in the flat
+    state layout v*z_no + z, with block = (var_no, z_no).
+
+    f_stages / f_cheap_stages: optional all-stages evaluators
     (ts (B, 3), Y (B, 3, n)) -> (B, 3, n); the fused RHS kernel provides
     one over the stage-stacked 3B batch.
 
@@ -108,9 +130,16 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
     """
     Bsz, n = y0.shape
     dtype, dev = y0.dtype, y0.device
-    var_no, z_no = block
-    if var_no * z_no != n:
-        raise ValueError(f"block {block} does not tile the state size {n}")
+    if block is not None:
+        if jac_blocks is None:
+            raise ValueError("block mode needs jac_blocks")
+        var_no, z_no = block
+        if var_no * z_no != n:
+            raise ValueError(
+                f"block {block} does not tile the state size {n}")
+    elif jac is None:
+        raise ValueError("Newton-Schulz mode needs the batched dense jac "
+                         "(or pass block and jac_blocks)")
     if out_members is not None:
         out_idx = torch.as_tensor(np.asarray(out_members, np.int64),
                                   device=dev)
@@ -119,9 +148,10 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
         out_idx, n_rec = None, Bsz
     # relative evaluation noise of f: the floor of the Newton test
     rhs_noise = 2e-6 if dtype == _f32 else 1e-14
-    # f32 keeps the small growth cap: the exact solve still carries
-    # eps32-level noise and aggressive growth feeds Newton failures
-    max_fac = _MAX_FACTOR if dtype == _f32 else 3.0
+    # the Newton-Schulz warm start needs small h drift, and so does f32
+    # block mode: the exact solve still carries eps32-level noise and
+    # aggressive growth feeds Newton failures
+    max_fac = 3.0 if (block is not None and dtype != _f32) else _MAX_FACTOR
     eps_dt = torch.finfo(dtype).eps
 
     c_np, A_np, b_np, bhat_np, w_np, T_np, Tinv_np = _transformed_tableau()
@@ -135,6 +165,13 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
     gamma = float(w_np[0].real)
     mu_r, mu_i = float(w_np[1].real), float(w_np[1].imag)
     coef = cuda_block.apply_coefficients(gamma, mu_r, mu_i, T_np, Tinv_np)
+    Tr, Ti = cst(T_np.real), cst(T_np.imag)
+    Tir, Tii = cst(Tinv_np.real), cst(Tinv_np.imag)
+    ns_kw = dict(gamma=gamma, mu_r=mu_r, mu_i=mu_i)
+    # kernel steps on the card alternate between two sets of buffers made
+    # once; the CPU twin allocates its results
+    ns_ws = (cuda_ns.Workspace(Bsz, n, dev)
+             if block is None and dev.type == "cuda" else None)
     n_out = ts.shape[0]
     cheap_n = (min(int(cheap_sweeps), newton_iters - 1)
                if (f_cheap is not None and cheap_sweeps) else 0)
@@ -181,6 +218,57 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
 
         return solve_stages, solve_err
 
+    def ns_update(P, h, J, k, workspace=None):
+        """k Newton-Schulz iterations toward (I - h*gamma*J)^-1 and
+        (I - h*mu*J)^-1, and rho, a bound on the residual
+        ||I - M P||_F / sqrt(n) of the RESULT: by the identity
+        I - M P' = (I - M P)^2 it is the square of the last pre-update
+        residual where that is below 1, else inf."""
+        h32 = h.to(_f32).contiguous()
+        P = tuple(p.contiguous() for p in P)
+        for _ in range(k):
+            *P, rho_pre = cuda_ns.ns_fused_step(J, *P, h32, **ns_kw,
+                                                workspace=workspace)
+        inf = torch.full_like(rho_pre, float("inf"))
+        rho = torch.where(rho_pre < 1.0, rho_pre ** 2, inf)
+        return tuple(P), torch.where(torch.isfinite(rho), rho, inf)
+
+    def matvec(M, v):
+        return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+
+    def ns_solvers(h_eff, J, P):
+        """The preconditioners' stage solve R (B, 3, n) -> dK and error
+        smoothing e (B, n) -> x, with block mode's signatures."""
+        Pr, Pcr, Pci = P
+
+        def solve_stages(R):
+            # W = T^-1 R (row 0 is real and row 2 = conj(row 1))
+            R32r = torch.einsum("ij,bjn->bin", Tir, R).to(_f32)
+            R32i = torch.einsum("ij,bjn->bin", Tii, R).to(_f32)
+            # five matvecs without stacking the matrices: the complex
+            # one, (Pcr + i Pci)(xr + i xi), as two (n x 2)-wide products
+            Z0 = matvec(Pr, R32r[:, 0])
+            X = torch.stack([R32r[:, 1], R32i[:, 1]], dim=-1)   # (B, n, 2)
+            Yr = torch.matmul(Pcr, X)
+            Yi = torch.matmul(Pci, X)
+            Z1r = Yr[..., 0] - Yi[..., 1]
+            Z1i = Yi[..., 0] + Yr[..., 1]
+            # stage 2 = conj(stage 1); dK = Re(T Z)
+            Zr = torch.stack([Z0, Z1r, Z1r], dim=1).to(dtype)
+            Zi = torch.stack([torch.zeros_like(Z0), Z1i, -Z1i],
+                             dim=1).to(dtype)
+            return (torch.einsum("ij,bjn->bin", Tr, Zr)
+                    - torch.einsum("ij,bjn->bin", Ti, Zi))
+
+        def solve_err(e32):
+            # Pr e with one refinement through J
+            x = matvec(Pr, e32)
+            g32 = (gamma * h_eff.to(_f32))[:, None]
+            r_e = e32 - (x - g32 * matvec(J, x))
+            return (x + matvec(Pr, r_e)).to(dtype)
+
+        return solve_stages, solve_err
+
     def newton_sweeps(k, fB, fS, carry, t, y, h_eff, scale3, state_floor,
                       solve_stages):
         K, done, rn = carry
@@ -204,7 +292,10 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
             K = K_new
         return K, done, rn
 
-    def attempt(s, Jd_t, Jl_t):
+    def attempt(s, Jd_t=None, Jl_t=None):
+        """One masked step attempt of every member. Block mode takes the
+        chunk's member-last Jacobian blocks; Newton-Schulz mode reads the
+        dense Jacobian s["J"] and the preconditioners s["P"]."""
         t, y, yc, fval, h = s["t"], s["y"], s["yc"], s["f"], s["h"]
         seg = s["seg"]
         seg_c = torch.clamp(seg + 1, max=n_out - 1)
@@ -212,7 +303,17 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
         active = seg < (n_out - 1)
         h_eff = torch.where(active, torch.minimum(h, t_end - t), h)
         h_eff = torch.clamp(h_eff, min=1e-300)
-        solve_stages, solve_err = stage_solvers(h_eff, Jd_t, Jl_t)
+        if block is not None:
+            solve_stages, solve_err = stage_solvers(h_eff, Jd_t, Jl_t)
+            P, certified = None, None
+        else:
+            # warm preconditioner maintenance every attempt (h drifts by
+            # at most 1.4x)
+            P, rho = ns_update(s["P"], h_eff, s["J"], ns_step, ns_ws)
+            solve_stages, solve_err = ns_solvers(h_eff, s["J"], P)
+            # certify the linear solves: a silently bad preconditioner
+            # makes Newton increments tiny while the system stays unsolved
+            certified = rho < 0.5
 
         scale = atol + rtol * torch.abs(y)
         scale3 = scale.repeat(1, 3) * np.sqrt(3.0)
@@ -237,6 +338,8 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
                                        carry, *sweep_args)
         newton_done = conv
         conv = conv & torch.isfinite(res_n)
+        if certified is not None:
+            conv = conv & certified
 
         bK = torch.einsum("j,bjn->bn", Bv, K)
         y1 = y + h_eff[:, None] * bK
@@ -301,7 +404,7 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
         )
         return dict(
             t=t_new, y=y_new, yc=yc_new, f=f_new, h=h_new, seg=seg_new,
-            out=out, stats=st,
+            out=out, stats=st, J=s["J"], P=P,
             # predictor state: the last ACCEPTED step's stages and size
             Kp=torch.where(accept[:, None, None], K, s["Kp"]),
             hp=torch.where(accept, h_eff, s["hp"]),
@@ -312,12 +415,22 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
     t0 = torch.full((Bsz,), float(ts[0]), dtype=dtype, device=dev)
     f0 = f(t0, y0)
     span = ts[-1] - ts[0]
-    Jd0, Jl0 = (J.to(_f32) for J in jac_blocks(t0, y0))
-    # first step: ||h*gamma*J|| << 1, with the block row sums (identical
-    # to the dense row sums of the block-bidiagonal J)
-    row_sums = torch.sum(torch.abs(Jd0), dim=-1) + torch.sum(
-        torch.abs(Jl0), dim=-1)                                 # (B, z, m)
-    j_norm = torch.amax(row_sums, dim=(-1, -2)).to(dtype)
+    # first step: ||h*gamma*J|| << 1 (so P0 = I is a valid Newton-Schulz
+    # seed), from the row sums of J
+    if block is not None:
+        Jd0, Jl0 = (J.to(_f32) for J in jac_blocks(t0, y0))
+        # the block row sums are the dense row sums of the bidiagonal J
+        row_sums = torch.sum(torch.abs(Jd0), dim=-1) + torch.sum(
+            torch.abs(Jl0), dim=-1)                             # (B, z, m)
+        j_norm = torch.amax(row_sums, dim=(-1, -2)).to(dtype)
+        J0 = P0 = None
+    else:
+        J0 = jac(t0, y0).to(_f32).contiguous()
+        j_norm = torch.amax(torch.sum(torch.abs(J0), dim=-1),
+                            dim=-1).to(dtype)
+        eyeB = torch.eye(n, dtype=_f32, device=dev).expand(
+            Bsz, n, n).contiguous()
+        P0 = (eyeB, eyeB.clone(), torch.zeros_like(eyeB))
     h0 = torch.clamp(0.05 / (abs(gamma) * j_norm + 1e-30), max=1e-3 * span)
 
     zero_b = torch.zeros(Bsz, dtype=torch.int32, device=dev)
@@ -329,19 +442,63 @@ def odeint_ensemble(f, y0, ts, *, jac_blocks, block, rtol=1e-7, atol=1e-10,
         Kp=f0[:, None, :].expand(Bsz, 3, n),
         hp=torch.ones(Bsz, dtype=dtype, device=dev),
         pv=torch.zeros(Bsz, dtype=torch.bool, device=dev),
+        J=J0, P=P0,
     )
+
+    def alive(s):
+        return torch.any(s["seg"] < n_out - 1)
+
+    def ns_refresh_chunk(s):
+        """Fresh dense Jacobian and re-converged preconditioners for the
+        next chunk. Returns (J, P, rescued) or None once every member has
+        finished. Its one host read carries two flags: whether any member
+        is still integrating, and whether any needs the cold rescue. The
+        refresh is queued before the read, so the card works through it
+        while the host waits; at the early exit that refresh is dropped."""
+        J = jac(s["t"], s["y"]).to(_f32).contiguous()
+        # reset any non-finite preconditioner to the safe cold seed
+        cold = cuda_ns.ns_cold_start(J, s["h"].to(_f32), **ns_kw)
+        bad = ~(torch.isfinite(s["P"][0]) & torch.isfinite(s["P"][1])
+                & torch.isfinite(s["P"][2])).all(dim=-1).all(dim=-1)
+        P = tuple(torch.where(bad[:, None, None], c, p)
+                  for c, p in zip(cold, s["P"]))
+        P, rho_w = ns_update(P, s["h"], J, ns_refresh, ns_ws)
+        # a Newton-Schulz iterate outside its basin squares AWAY from the
+        # inverse while staying finite, and the warm chain never recovers
+        # at a later refresh: members whose certified residual says the
+        # refresh failed are redone from the cold seed
+        need = ~(rho_w < 0.5)
+        go, rescue = torch.stack([alive(s), torch.any(need)]).tolist()
+        if not go:
+            return None
+        if rescue:
+            # rare: these steps allocate their own buffers, the warm
+            # result lives in the workspace
+            Pc, _ = ns_update(cold, s["h"], J, ns_refresh)
+            P = tuple(torch.where(need[:, None, None], c, p)
+                      for c, p in zip(Pc, P))
+        return J, P, bool(rescue)
+
     n_chunks = max(max_steps // j_every, 1)
     for _ in range(n_chunks):
-        # early exit once every member has written its last segment: the
-        # one host sync of a chunk
-        if not bool(torch.any(s["seg"] < n_out - 1)):
-            break
-        # refresh the Jacobian blocks once per chunk, member-last
-        Jd, Jl = jac_blocks(s["t"], s["y"])
-        Jd_t, Jl_t = to_member_last(Jd), to_member_last(Jl)
-        s["stats"] = s["stats"]._replace(n_jev=s["stats"].n_jev + 1)
+        # early exit once every member has written its last segment
+        st = s["stats"]
+        if block is not None:
+            if not bool(alive(s)):
+                break
+            # refresh the Jacobian blocks once per chunk, member-last
+            Jd, Jl = jac_blocks(s["t"], s["y"])
+            lin = (to_member_last(Jd), to_member_last(Jl))
+        else:
+            fresh = ns_refresh_chunk(s)
+            if fresh is None:
+                break
+            s["J"], s["P"], rescued = fresh
+            st = st._replace(n_rescue=st.n_rescue + int(rescued))
+            lin = ()
+        s["stats"] = st._replace(n_jev=st.n_jev + 1)
         for _ in range(j_every):
-            s = attempt(s, Jd_t, Jl_t)
+            s = attempt(s, *lin)
 
     y_fin, out, stats = s["y"], s["out"], s["stats"]
     # members that exhausted the budget keep their final state in the

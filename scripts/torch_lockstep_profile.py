@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the port's f32x N2 DME sweep goes, on one CUDA card.
+"""Where the time of the port's N2 DME sweeps goes, on one CUDA card.
 
-    python3 scripts/torch_lockstep_profile.py
+    python3 scripts/torch_lockstep_profile.py [--leg f32x|f32]
 
-Runs chip_smoke.py's sweep at its B = 4096 (bench.py's f32x leg through
+Runs one of chip_smoke.py's sweeps at its B = 4096 (bench.py's f32x leg,
+the default, or its f32 leg, through
 rmt_tpu_torch.parallel.run_n2_ensemble_lockstep) and prints:
   - the wall of a first run (CUDA set-up and kernel builds) and of two
-    warm runs, with the integrator's attempts and Jacobian refreshes;
-  - a warm run with the Jacobian-block refresh timed on its own (the
-    card synchronised around each refresh);
+    warm runs, with the integrator's attempts and Jacobian refreshes, and
+    the second warm run's kernel launch counts and peak device memory;
+  - a warm run with the Jacobian evaluation (the blocks for f32x, the
+    dense matrix for f32) timed on its own (the card synchronised around
+    each call);
   - a torch.profiler window of two chunks (16 attempts, two refreshes):
     its wall, the device time of every kernel in it, the busy share and
     the number of kernel launches, then the kernels by device time.
 """
 
+import argparse
 import os
 import sys
 import time
@@ -22,6 +26,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--leg", choices=("f32x", "f32"), default="f32x")
+    leg = ap.parse_args().leg
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -31,6 +39,7 @@ def main():
     sys.path.insert(0, ROOT)
     import chip_smoke
     from rmt_tpu_torch.cases.dme_case import make_model_input
+    from rmt_tpu_torch.ops import cuda_block, cuda_ns, cuda_rhs
     from rmt_tpu_torch.parallel import run_n2_ensemble_lockstep
     from rmt_tpu_torch.solvers import stiff_ensemble
 
@@ -39,51 +48,65 @@ def main():
     B = chip_smoke.B
     mi = make_model_input(model="N2")
     sweep = {"T0": 523.0 + np.linspace(-5.0, 5.0, B)}
+    opts = chip_smoke.F32X if leg == "f32x" else chip_smoke.F32
+    jac_arg = "jac_blocks" if leg == "f32x" else "jac"
+    counts = (cuda_block.LAUNCHES, cuda_rhs.LAUNCHES, cuda_ns.LAUNCHES)
 
     def run(label, **over):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         _, stats = run_n2_ensemble_lockstep(
-            mi, sweep, device=dev, **dict(chip_smoke.F32X, **over))
+            mi, sweep, device=dev, **dict(opts, **over))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         att = (stats.n_accepted + stats.n_rejected).cpu().numpy()
-        print(f"{label}: B {B}, wall {wall:.3f} s, members/s {B / wall:.1f}, "
-              f"refreshes {stats.n_jev - 1}, attempts mean {att.mean():.1f} "
-              f"max {int(att.max())}", flush=True)
+        print(f"{label} ({leg}): B {B}, wall {wall:.3f} s, members/s "
+              f"{B / wall:.1f}, refreshes {stats.n_jev - 1}, rescues "
+              f"{stats.n_rescue}, attempts mean {att.mean():.1f} max "
+              f"{int(att.max())}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
+              flush=True)
         return wall
 
     run("first run")
     run("warm run 1")
+    for table in counts:
+        for k in table:
+            table[k] = 0
     run("warm run 2")
+    print("warm run 2: launches " + ", ".join(
+        f"{k} {v}" for table in counts for k, v in table.items()), flush=True)
 
-    # the Jacobian-block refresh alone: wrap the jac_blocks callable the
-    # entry point hands to the integrator
+    # the Jacobian evaluation alone: wrap the callable the entry point
+    # hands to the integrator
     odeint = stiff_ensemble.odeint_ensemble
     spent = {"s": 0.0, "n": 0}
 
-    def timed_odeint(f, y0, ts, *, jac_blocks, **kw):
+    def timed_odeint(f, y0, ts, **kw):
+        jac = kw.pop(jac_arg)
+
         def jac_timed(t, y):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = jac_blocks(t, y)
+            out = jac(t, y)
             torch.cuda.synchronize()
             spent["s"] += time.perf_counter() - t0
             spent["n"] += 1
             return out
-        return odeint(f, y0, ts, jac_blocks=jac_timed, **kw)
+        return odeint(f, y0, ts, **{jac_arg: jac_timed}, **kw)
 
     stiff_ensemble.odeint_ensemble = timed_odeint
     try:
         wall = run("split run")
     finally:
         stiff_ensemble.odeint_ensemble = odeint
-    print(f"split run: jac_blocks {spent['s']:.3f} s of {wall:.3f} s over "
+    print(f"split run: {jac_arg} {spent['s']:.3f} s of {wall:.3f} s over "
           f"{spent['n']} calls ({spent['s'] / spent['n'] * 1e3:.1f} ms "
           f"each)", flush=True)
 
     # a profiled window of two chunks (j_every = 8 attempts each)
-    window = dict(max_steps=2 * chip_smoke.F32X["j_every"])
+    window = dict(max_steps=2 * opts["j_every"])
     run("window warm-up", **window)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -1,6 +1,6 @@
 # Foundations of the PyTorch port (rmt_tpu_torch): the copied tables and
 # stoichiometry equal rmt_tpu's bit for bit, the package imports no jax,
-# the jax-free DME case equals the test fixture, and the parameter
+# the jax-free DME and CH4 cases equal the test fixtures, and the parameter
 # conversion feeds both packages the same numbers.
 
 import subprocess
@@ -23,6 +23,7 @@ from rmt_tpu.kinetics import compile_rate_program as j_compile
 from rmt_tpu.models import homo as jhomo
 from rmt_tpu_torch import config as tconfig
 from rmt_tpu_torch import constants as tc
+from rmt_tpu_torch.cases import ch4_case as t_ch4_case
 from rmt_tpu_torch.cases import dme_case as t_dme_case
 from rmt_tpu_torch.convert import params_from_jax
 from rmt_tpu_torch.data import defaults as tdef
@@ -137,6 +138,49 @@ def test_jax_free_dme_case_rates_equal_fixture():
     np.testing.assert_allclose(port, ref, rtol=1e-13, atol=0)
 
 
+@pytest.mark.parametrize("kw", [{}, dict(T=978.0, P=2.5e5, op_period=5.0)],
+                         ids=["default", "swept"])
+def test_jax_free_ch4_case_equals_fixture(kw):
+    ref = ch4_case.make_model_input(**kw)
+    port = t_ch4_case.make_model_input(**kw)
+    a, b = _strip(ref), _strip(port)
+    np.testing.assert_array_equal(b["feed"].pop("concentration"),
+                                  a["feed"].pop("concentration"))
+    assert a == b
+    for part in ("VARS", "RATES"):
+        assert (ref["reaction-rates"][part].keys()
+                == port["reaction-rates"][part].keys())
+    assert (port["reaction-rates"]["VARS"]["k0"]
+            == ref["reaction-rates"]["VARS"]["k0"])
+    for name in ("REACTION_SET", "COMP_LIST", "BED_POR", "CAT_D", "CAT_RHO",
+                 "CAT_CP", "BULK_RHO"):
+        assert getattr(t_ch4_case, name) == getattr(ch4_case, name), name
+
+
+def test_jax_free_ch4_case_rates_equal_fixture():
+    """The copy's kinetics give the original's rate (float64, both
+    packages' DSL evaluators)."""
+    rng = np.random.default_rng(12)
+    T = rng.uniform(950, 1000, 16)
+    P = rng.uniform(2.5e5, 3e5, 16)
+    mf = rng.dirichlet(np.ones(3), 16).T
+    conc = mf * 37.08
+    ref = np.asarray(j_compile(ch4_case.ch4_kinetics())(
+        jnp.asarray(T), jnp.asarray(P), jnp.asarray(mf), jnp.asarray(conc)))
+    tt = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    port = t_compile(t_ch4_case.ch4_kinetics())(tt(T), tt(P), tt(mf),
+                                                tt(conc)).numpy()
+    np.testing.assert_allclose(port, ref, rtol=1e-13, atol=0)
+
+
+def test_params_from_jax_default_device_is_the_ports():
+    """device=None follows config.default_device(), as every other entry
+    point of the port does."""
+    tp = params_from_jax({"T0": np.float64(523.0), "sub": {"a": [1.0, 2.0]}})
+    assert tp["T0"].device.type == tconfig.default_device().type
+    assert tp["sub"]["a"].device.type == tconfig.default_device().type
+
+
 def test_params_from_jax_round_trip():
     mi = dme_case.make_model_input(model="N2")
     mi["kinetic-overrides"] = {"K1": 0.5}
@@ -148,6 +192,6 @@ def test_params_from_jax_round_trip():
         if k == "kinetic_overrides":
             continue
         np.testing.assert_array_equal(tp[k].numpy(), np.asarray(v))
-    t32 = params_from_jax(p, dtype=torch.float32)
+    t32 = params_from_jax(p, device="cpu", dtype=torch.float32)
     assert t32["T0"].dtype == torch.float32
     assert float(t32["kinetic_overrides"]["K1"]) == 0.5

@@ -2,8 +2,9 @@
 # CPU the wrapper runs its plain PyTorch twin, held here to rmt_tpu's
 # fused Pallas RHS (ops/pallas_rhs.py, interpret mode) in plain and df32
 # mode, at M = B and at the stage-stacked M = 3B, with the bars of
-# tests/test_fused_rhs.py. The generated CUDA kernels are held to the same
-# twin on the card by chip_smoke.py.
+# tests/test_fused_rhs.py, for the DME chemistry and for the CH4 one (the
+# kernel is generated per chemistry). The generated CUDA kernels are held
+# to the same twin on the card by chip_smoke.py.
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import ch4_case
 from dme_case import make_model_input
 from rmt_tpu.models import homo as jhomo
 from rmt_tpu.ops import pallas_rhs
@@ -27,15 +29,13 @@ def _to32(tree):
                         tree)
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _make_setup(mi, t_base):
     """Per-member float32 leaves and a state mildly off the initial value
     (kinetics and stencils active), the same numbers for both packages."""
-    mi = make_model_input(model="N2")
     jspec = jhomo.build_spec(mi, z_no=20, t_no=5)
     base = jhomo.build_params(mi)
     params, axes = batch_params(
-        base, {"T0": jnp.asarray(523.0 + np.linspace(-5.0, 5.0, B))})
+        base, {"T0": jnp.asarray(t_base + np.linspace(-5.0, 5.0, B))})
 
     def derive(q):
         d = jhomo.feed_state(jspec, q)
@@ -56,9 +56,20 @@ def setup():
     y = (np.asarray(y0B) * (1.0 + 0.05 * rng.uniform(size=y0B.shape))
          ).astype(np.float32)
     tspec = thomo.build_spec(mi)
-    leaves = cuda_rhs.pack_leaves(params_from_jax(pB32, dtype=torch.float32),
-                                  params_from_jax(dB32, dtype=torch.float32))
+    leaves = cuda_rhs.pack_leaves(
+        params_from_jax(pB32, device="cpu", dtype=torch.float32),
+        params_from_jax(dB32, device="cpu", dtype=torch.float32))
     return jspec, tspec, pB, dB, pB32, dB32, y, leaves
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _make_setup(make_model_input(model="N2"), 523.0)
+
+
+@pytest.fixture(scope="module")
+def setup_ch4():
+    return _make_setup(ch4_case.make_model_input(model="N2"), 973.0)
 
 
 def _scaled_rel(got, ref):
@@ -87,6 +98,40 @@ def test_twin_matches_pallas(setup, mode, rows):
     assert cuda_rhs.LAUNCHES == before      # CPU tensors run the twin
     assert tuple(got.shape) == ref.shape and got.dtype == torch.float32
     assert _scaled_rel(got.numpy(), ref) < 5e-5
+
+
+@pytest.mark.parametrize("rows", ["B", "3B"])
+@pytest.mark.parametrize("mode", [False, "df32"])
+def test_ch4_twin_matches_pallas(setup_ch4, mode, rows):
+    """The second chemistry (3 species, 1 reaction, a concentration-based
+    rate with an integer power) through the same generator path, at the
+    DME bar."""
+    jspec, tspec, _, _, pB32, dB32, y, leaves = setup_ch4
+    assert tspec.var_no_n2 == 4 and y.shape == (B, 80)
+    yy = y if rows == "B" else _stack3(y)
+    ref = np.asarray(pallas_rhs.build_n2_fused(
+        jspec, accurate_rates=mode, interpret=True)(
+            None, jnp.asarray(yy), pB32, dB32), np.float64)
+    got = cuda_rhs.build_n2_fused(tspec, accurate_rates=mode)(
+        torch.as_tensor(yy), *leaves)
+    assert tuple(got.shape) == ref.shape and got.dtype == torch.float32
+    assert _scaled_rel(got.numpy(), ref) < 5e-5
+
+
+@pytest.mark.parametrize("mode", [False, "df32"])
+def test_ch4_kernel_source_is_generated(setup_ch4, mode):
+    """The CUDA source generated for CH4 carries its own rate program
+    (one rate, three species, the integer power as df_int_pow in df32
+    mode) and differs from the DME one."""
+    tspec = setup_ch4[1]
+    src = cuda_rhs.kernel_source(tspec, accurate_rates=mode)
+    assert "float co_re[3], mofri[3];" in src
+    assert ("df r[1];" if mode else "float r[1];") in src
+    assert ("const df v8 = df_int_pow(v5, 2);" if mode
+            else "const float v8 = (v5 * v5);") in src
+    dme = cuda_rhs.kernel_source(
+        thomo.build_spec(make_model_input(model="N2")), accurate_rates=mode)
+    assert src != dme and "n2_rhs_launch" in src
 
 
 @pytest.mark.parametrize("mode", [False, "df32"])
@@ -124,6 +169,26 @@ def test_df32_twin_tracks_f64_reference(setup):
     err_port = _scaled_rel(got, ref64)
     err_xla = _scaled_rel(xla, ref64)
     assert err_port < max(2.0 * err_xla, 2e-6), (err_port, err_xla)
+
+
+def test_operation_count_follows_the_rate_program(setup, setup_ch4):
+    """The roofline's operation count walks the traced rate program: the
+    CH4 program is two plain operations (a square and a product), a pair
+    operation counts its error-free transforms (a pair product 24, so the
+    square and the product are 48), and the DME chain in df32 mode is
+    several times the plain count."""
+    dme, ch4 = setup[1], setup_ch4[1]
+    g_plain, _ = cuda_rhs.trace_rates(ch4, False)
+    g_df, _ = cuda_rhs.trace_rates(ch4, True)
+    dag = lambda g: sum(cuda_rhs._node_ops(*node) for node in g.nodes)
+    assert dag(g_plain) == 2 and dag(g_df) == 48
+    counts = {(name, mode): cuda_rhs.operation_count(spec, mode)
+              for name, spec in (("dme", dme), ("ch4", ch4))
+              for mode in (False, "df32")}
+    assert counts["ch4", False] < counts["dme", False]
+    assert counts["dme", "df32"] > 5 * counts["dme", False]
+    rhs = cuda_rhs.build_n2_fused(dme, accurate_rates="df32")
+    assert rhs.operations() == counts["dme", "df32"]
 
 
 def test_wrapper_checks_rows():

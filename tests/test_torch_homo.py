@@ -31,8 +31,8 @@ def _setup(case, dtype=np.float64, seed=0, kinetic_overrides=None):
     if dtype == np.float32:
         d = jax.tree.map(lambda x: jnp.asarray(np.asarray(x, np.float32)), d)
     tdt = torch.float32 if dtype == np.float32 else torch.float64
-    tp = params_from_jax(p, dtype=tdt)
-    td = params_from_jax(d, dtype=tdt)
+    tp = params_from_jax(p, device="cpu", dtype=tdt)
+    td = params_from_jax(d, device="cpu", dtype=tdt)
     y0 = np.asarray(jhomo.n2_initial_state(jspec, p, d), np.float64)
     rng = np.random.default_rng(seed)
     y = (y0 * (1 + 0.05 * rng.uniform(size=y0.shape))).astype(dtype)

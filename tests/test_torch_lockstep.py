@@ -2,7 +2,8 @@
 # run_n2_ensemble_lockstep on rmt_tpu_torch.solvers.stiff_ensemble)
 # against rmt_tpu's, end to end at B = 2 with the f32x options of bench.py
 # (df32 kinetics, exact block solves, 2 cheap sweeps, j_every 8,
-# 5 Newton sweeps) at rtol 1e-5 / atol 1e-7 to keep the CPU time small.
+# 5 Newton sweeps) at rtol 1e-5 / atol 1e-7 to keep the CPU time small,
+# and the CH4 second chemistry on the same path against bench_ref.npz.
 # On the CPU every kernel of the path runs as its plain PyTorch twin.
 
 import jax.numpy as jnp
@@ -130,15 +131,48 @@ def test_odeint_ensemble_matches_jax_block_mode():
 
 
 def test_unported_options_raise():
-    mi = t_input(model="N2")
+    """Newton-Schulz mode (no exact_solve) is ported and no longer
+    raises; what is still left for later ports does."""
+    mi = t_input(model="N2", op_period=0.002)
     sweep = {"T0": T0}
-    with pytest.raises(NotImplementedError, match="exact_solve"):
-        t_run(mi, sweep, device="cpu")
+    ys, st = t_run(mi, sweep, device="cpu", max_steps=8, j_every=8)
+    assert tuple(ys.shape) == (6, 2, 140) and st.n_jev >= 2
+    with pytest.raises(NotImplementedError, match="accurate_rates"):
+        t_run(mi, sweep, device="cpu", accurate_rates=True)
     with pytest.raises(NotImplementedError, match="accurate_rates"):
         t_run(mi, sweep, device="cpu", exact_solve=True,
-              accurate_rates=True)
+              accurate_rates="full")
+    with pytest.raises(ValueError, match="cheap_sweeps"):
+        t_run(mi, sweep, device="cpu", cheap_sweeps=2)
     with pytest.raises(ValueError, match="cheap_sweeps"):
         t_run(mi, sweep, device="cpu", exact_solve=True, cheap_sweeps=2)
     with pytest.raises(ValueError, match="shared period"):
         t_run(mi, {"opT": np.array([0.5, 0.6])}, device="cpu",
               exact_solve=True)
+    for later in ("microbatch", "mesh", "batched_rhs", "dense_output"):
+        with pytest.raises(TypeError, match=later):
+            t_run(mi, sweep, device="cpu", exact_solve=True,
+                  **{later: True})
+
+
+def test_ch4_f32x_sweep_matches_reference_probes():
+    """The second chemistry (m = 4, n = 80) through the f32x path at
+    B = 2: bench.py's f32x options on the CH4 case at two probe
+    temperatures of bench_ref.npz, within its 1e-6 bar of the converged
+    float64 states."""
+    import os
+
+    from rmt_tpu_torch.cases.ch4_case import make_model_input as ch4_input
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "bench_ref.npz")) as z:
+        pick = [0, 15]
+        t0 = float(z["ch4_t_base"]) + z["ch4_offsets"][pick]
+        want = z["ch4_ys"][:, pick]
+    ys, st = t_run(ch4_input(model="N2"), {"T0": t0}, device="cpu",
+                   **dict(KW, rtol=6e-7, atol=1e-9))
+    assert tuple(ys.shape) == want.shape == (6, 2, 80)
+    assert int(torch.sum(st.seg < 5)) == 0
+    rel = np.abs(ys.numpy().astype(np.float64) - want) / np.maximum(
+        np.abs(want), 1e-7)
+    assert float(rel.max()) <= 1e-6, float(rel.max())
