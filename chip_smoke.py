@@ -21,7 +21,8 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      twin, its roofline bound and, where one PyTorch call computes the
      same function, that call. The block and RHS kernels equal their
      twins bit for bit; the Newton-Schulz kernel (dense float32 products
-     against cuBLAS) is held to 2e-5, and to a float64 evaluation;
+     against cuBLAS) is held to 2e-5, and to a float64 evaluation, at
+     n = 140, 24, 30, 80 and 100, and must refuse n = 200;
   3. the f32x DME sweep (bench.py's headline leg: df32 kinetics, exact
      block solves) at B = 4096 through
      rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, with the 64 probe
@@ -394,9 +395,11 @@ def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
     check(all(torch.equal(a, b) for a, b in zip(rhos, rhos_b))
           and torch.equal(pr_a, pr_b), "ns_fused_step is not reproducible")
 
-    # ragged edges: n = 24 (one partial tile) and n = 80 (the CH4 width)
+    # ragged edges: n = 24 (one panel, padded rows), n = 30 (rows not
+    # 16-byte aligned: 4-byte copies), n = 80 (the CH4 width) and n = 100
+    # (a partial last panel)
     rng = np.random.default_rng(SEED)
-    for Bs, ns in ((3, 24), (16, 80)):
+    for Bs, ns in ((3, 24), (3, 30), (16, 80), (16, 100)):
         Js = torch.as_tensor(
             (-np.eye(ns) * rng.uniform(1.0, 50.0, (Bs, 1, 1))
              + 0.3 * rng.standard_normal((Bs, ns, ns))).astype(np.float32),
@@ -409,6 +412,16 @@ def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
         e_s = max(scaled(a, b) for a, b in zip(g_s, w_s))
         say(f"ns_fused_step: n = {ns}, B = {Bs}: {e_s:.3e} (bar 2e-5)")
         check(e_s <= 2e-5, f"ns_fused_step at n = {ns} differs by {e_s}")
+
+    # a width whose panel does not fit one block is refused before launch
+    big = torch.zeros((2, 200, 200), device=dev)
+    try:
+        cuda_ns.ns_fused_step(big, big, big, big, h[:2].contiguous(), **eig)
+    except ValueError as e:
+        say(f"ns_fused_step: n = 200 refused: {e}")
+    else:
+        check(False, "ns_fused_step did not refuse n = 200")
+    del big
 
     def three_bmm():
         """The concatenated torch.bmm formulation of the same step
@@ -438,14 +451,19 @@ def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
     check(e_lib <= 2e-5, f"the bmm formulation differs from the twin by "
           f"{e_lib}")
     # bound: 8 products of 2 n^3 a member; 4 matrices in, 3 out
-    return {"ns_fused_step": dict(
+    ops = 16 * n ** 3 * Bn
+    res = dict(
         max_abs_err=abs_tw,
         ms=time_ms(torch, lambda: cuda_ns.ns_fused_step(
             J, *P, h, **eig, workspace=ws)),
         plain_ms=time_ms(torch, lambda: cuda_ns.ns_fused_step_twin(
             J, *P, h, *eig.values())),
         library_ms=time_ms(torch, three_bmm),
-        **bound(4 * (7 * Bn * n * n + 2 * Bn), 16 * n ** 3 * Bn))}
+        **bound(4 * (7 * Bn * n * n + 2 * Bn), ops))
+    say(f"ns_fused_step: {ops / res['ms'] * 1e-9:.2f} TFLOP/s, "
+        f"{res['bound_ms'] / res['ms']:.3f} of its bound, at B = {Bn}, "
+        f"n = {n} ({cuda_ns.geometry(n)})")
+    return {"ns_fused_step": res}
 
 
 def probe_layout(np, b, offsets):
@@ -608,7 +626,8 @@ def main():
                else f"{v['library_ms']:.4f} ms")
         say(f"time {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} "
             f"ms, library {lib}, bound {v['bound_ms']:.4f} ms by "
-            f"{v['bound_by']} (median of {REPS} x {GROUP} calls) on {card}")
+            f"{v['bound_by']} ({v['bound_ms'] / v['ms']:.3f} of it; median "
+            f"of {REPS} x {GROUP} calls) on {card}")
 
     counts = (cuda_block.LAUNCHES, cuda_rhs.LAUNCHES, cuda_ns.LAUNCHES)
     by_path = {

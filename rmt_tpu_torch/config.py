@@ -32,5 +32,20 @@ def default_float() -> torch.dtype:
 
 
 def default_device() -> torch.device:
-    """The first CUDA card, else the CPU; callers pick another with device=."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device of an entry point called without device=: the CUDA card.
+    It is never the CPU; a caller who wants the CPU passes device="cpu"."""
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device, or default_device() when it is None.
+    Raises when that names a CUDA card and the host has none, instead of
+    running on the CPU."""
+    dev = torch.device(device) if device is not None else default_device()
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"rmt_tpu_torch: device {dev} requested"
+            + ("" if device is not None else " (the default)")
+            + " but this host has no CUDA card; pass device='cpu' to run "
+            "on the CPU")
+    return dev

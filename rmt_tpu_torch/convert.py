@@ -18,10 +18,11 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
     tree is the dict of rmt_tpu.models.homo.build_params (with its
     kinetic_overrides sub-dict) or a batched variant of it; leaves are
     numpy arrays, or anything np.asarray reads (jax arrays included).
-    Every leaf becomes a tensor of ``dtype`` on ``device`` (default:
-    config.default_device(), as every other entry point).
+    Every leaf becomes a tensor of ``dtype`` on ``device`` (default: the
+    CUDA card, as every other entry point; without a card a call that
+    names no device raises, see config.resolve_device).
     """
-    device = device if device is not None else config.default_device()
+    device = config.resolve_device(device)
     out = {}
     for key, val in tree.items():
         if isinstance(val, Mapping):

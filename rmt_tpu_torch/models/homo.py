@@ -73,9 +73,11 @@ def build_spec(model_input: Mapping[str, Any], **solver_overrides) -> HomoSpec:
 
 def build_params(model_input: Mapping[str, Any], dtype=None,
                  device=None) -> dict[str, Any]:
-    """Numeric parameter dict of tensors (every leaf may be swept)."""
+    """Numeric parameter dict of tensors (every leaf may be swept), on
+    ``device`` (default: the CUDA card; without one, a call that names no
+    device raises, see config.resolve_device)."""
     dtype = dtype or config.default_float()
-    device = device or config.default_device()
+    device = config.resolve_device(device)
     oc = model_input["operating-conditions"]
     feed = model_input["feed"]
     re_spec = model_input["reactor"]

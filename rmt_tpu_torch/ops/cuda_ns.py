@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,13 +27,66 @@ LAUNCHES = {"ns_fused_step": 0}
 _f32 = torch.float32
 _vp = ctypes.c_void_p
 
+# csrc/ns.cu's constants: a thread's micro-tile (rows x columns), the k
+# depth of a staged slab, the widest panel, the block's thread limit and
+# the shared memory a Hopper block may use
+MICRO_ROWS, MICRO_COLS, SLAB = 8, 4, 16
+MAX_PANEL_WIDTH = 48
+MAX_THREADS = 256
+MAX_SMEM_BYTES = 232_448
+
+
+class Geometry(NamedTuple):
+    """The launch geometry of csrc/ns.cu for matrices of edge n."""
+    n: int
+    width: int        # columns of a panel, 4 * tx
+    panels: int       # panels * width >= n
+    rows: int         # n padded to a multiple of SLAB, 8 * ty
+    tx: int           # threads across a panel
+    ty: int           # threads down the rows
+    threads: int      # tx * ty rounded up to whole warps
+    smem_bytes: int   # dynamic shared memory of a block
+
+
+def geometry(n: int) -> Geometry:
+    """Panel width and count, padded rows, threads and shared-memory bytes
+    of the kernel for n x n matrices: the fewest panels of at most 48
+    columns, each as narrow as covers n; rows padded to whole slabs; a
+    thread per 8 x 4 micro-tile. Raises ValueError when a member does not
+    fit one block (more than 256 threads or 227 KB of shared memory: any
+    n > 160)."""
+    if n <= 0:
+        raise ValueError(f"ns_fused_step: n = {n}")
+    panels = -(-n // MAX_PANEL_WIDTH)
+    tx = -(-n // (MICRO_COLS * panels))
+    rows = SLAB * -(-n // SLAB)
+    ty = rows // MICRO_ROWS
+    width = MICRO_COLS * tx
+    threads = 32 * -(-(tx * ty) // 32)
+    # two buffers of three panels (a panel's P and its MP, which then
+    # takes the next panel's P), two buffers of the three A slabs (SLAB
+    # floats a row and 8 more every 8 rows), the reduction array
+    smem = 4 * (2 * 3 * rows * width + 2 * 3 * rows * (SLAB + 1)
+                + 3 * threads)
+    if tx * ty > MAX_THREADS or smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"ns_fused_step: n = {n} does not fit one block ({tx * ty} "
+            f"threads of at most {MAX_THREADS}, {smem} bytes of shared "
+            f"memory of at most {MAX_SMEM_BYTES})")
+    return Geometry(n, width, panels, rows, tx, ty, threads, smem)
+
 
 @functools.cache
 def _lib():
     """The kernel's library, built at first use (once a process)."""
-    lib = _build.load(*build_job())
+    return bind(_build.load(*build_job()))
+
+
+def bind(lib):
+    """Set the argument types of ns_fused_step_launch on a loaded library
+    (also used to time another source with the same C interface)."""
     lib.ns_fused_step_launch.argtypes = (
-        [_vp] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [_vp])
+        [_vp] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [_vp])
     lib.ns_fused_step_launch.restype = ctypes.c_int
     return lib
 
@@ -99,14 +153,13 @@ def ns_cold_start(J, h32, *, gamma, mu_r, mu_i):
 
 
 class Workspace:
-    """Device buffers of a run of kernel steps, allocated once: the
-    scratch (B, 3, n, n) of the M P intermediates and two sets of output
-    iterates to alternate between, so that a chain of steps allocates
-    nothing. The set a step writes is the one its input does not live
-    in."""
+    """Device buffers of a run of kernel steps, allocated once: two sets
+    of output iterates to alternate between, so that a chain of steps
+    allocates nothing. The set a step writes is the one its input does
+    not live in. The kernel needs no other device memory: a panel's M P
+    intermediates stay in shared memory."""
 
     def __init__(self, B, n, device):
-        self.scratch = torch.empty((B, 3, n, n), dtype=_f32, device=device)
         self.sets = [tuple(torch.empty((B, n, n), dtype=_f32, device=device)
                            for _ in range(3)) for _ in range(2)]
 
@@ -115,13 +168,16 @@ class Workspace:
         return self.sets[1] if Pr.data_ptr() == mine else self.sets[0]
 
 
-def ns_fused_step(J, Pr, Pcr, Pci, h32, *, gamma, mu_r, mu_i, workspace=None):
+def ns_fused_step(J, Pr, Pcr, Pci, h32, *, gamma, mu_r, mu_i, workspace=None,
+                  lib=None):
     """One fused Newton-Schulz iteration for the whole ensemble.
 
     J, Pr, Pcr, Pci: (B, n, n) float32; h32: (B,) float32. Returns
     (Pr', Pcr', Pci', rho_pre), rho_pre (B,) the residual of the INPUT
     iterate. With a Workspace the outputs are its buffers (valid until
     the second next step through it); without, they are new tensors.
+    lib: another build of the kernel with the same C interface (bind),
+    for timing it beside this one; the default is csrc/ns.cu.
     """
     if J.device.type != "cuda":
         return ns_fused_step_twin(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i)
@@ -129,6 +185,7 @@ def ns_fused_step(J, Pr, Pcr, Pci, h32, *, gamma, mu_r, mu_i, workspace=None):
         raise ValueError(f"ns_fused_step: J shape {tuple(J.shape)} is not "
                          "(B, n, n)")
     B, n, _ = J.shape
+    geo = geometry(n)
     for t, shape in ((J, (B, n, n)), (Pr, (B, n, n)), (Pcr, (B, n, n)),
                      (Pci, (B, n, n)), (h32, (B,))):
         if t.device != J.device or t.dtype != _f32 or not t.is_contiguous():
@@ -138,23 +195,25 @@ def ns_fused_step(J, Pr, Pcr, Pci, h32, *, gamma, mu_r, mu_i, workspace=None):
             raise ValueError(
                 f"ns_fused_step: shape {tuple(t.shape)} != {shape}")
     if workspace is None:
-        scratch = torch.empty((B, 3, n, n), dtype=_f32, device=J.device)
         outs = tuple(torch.empty_like(J) for _ in range(3))
     else:
-        scratch, outs = workspace.scratch, workspace.out_for(Pr)
-        if (tuple(scratch.shape) != (B, 3, n, n)
-                or scratch.device != J.device):
+        outs = workspace.out_for(Pr)
+        if any(tuple(o.shape) != (B, n, n) or o.device != J.device
+               for o in outs):
             raise ValueError("ns_fused_step: the workspace was made for "
                              "another shape or device")
     # phase 2 of the kernel reads the inputs while the outputs are written
     ins = {t.data_ptr() for t in (J, Pr, Pcr, Pci)}
     if any(o.data_ptr() in ins for o in outs):
         raise ValueError("ns_fused_step: an output buffer aliases an input")
+    mats = (J, Pr, Pcr, Pci, *outs)
+    vec_ok = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in mats)
     rho = torch.empty((B,), dtype=_f32, device=J.device)
-    err = _lib().ns_fused_step_launch(
+    err = (lib or _lib()).ns_fused_step_launch(
         J.data_ptr(), Pr.data_ptr(), Pcr.data_ptr(), Pci.data_ptr(),
-        h32.data_ptr(), scratch.data_ptr(), *(o.data_ptr() for o in outs),
-        rho.data_ptr(), B, n, gamma, mu_r, mu_i,
+        h32.data_ptr(), *(o.data_ptr() for o in outs), rho.data_ptr(), B, n,
+        geo.tx, geo.ty, geo.panels, geo.threads, geo.smem_bytes,
+        int(vec_ok), gamma, mu_r, mu_i,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ns_fused_step")
     LAUNCHES["ns_fused_step"] += 1

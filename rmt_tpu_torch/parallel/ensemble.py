@@ -92,7 +92,9 @@ class N2Ensemble(NamedTuple):
 
 def prepare_n2_ensemble(model_input: Mapping[str, Any],
                         sweep: Mapping[str, Any], device=None) -> N2Ensemble:
-    """The float32 inputs of an N2 lockstep ensemble on ``device``.
+    """The float32 inputs of an N2 lockstep ensemble on ``device``
+    (default: the CUDA card; without one, a call that names no device
+    raises instead of running on the CPU, see config.resolve_device).
 
     Parameters and feed state follow the reference's hybrid cast for a
     df32 run (rmt_tpu/parallel/ensemble.py, hybrid_cast): parameters are
@@ -104,8 +106,7 @@ def prepare_n2_ensemble(model_input: Mapping[str, Any],
         raise ValueError("the lockstep integrator requires a shared period")
     if not sweep:
         raise ValueError("the sweep must name at least one batched leaf")
-    device = torch.device(device) if device is not None else \
-        config.default_device()
+    device = config.resolve_device(device)
     spec = homo.build_spec(model_input)
     base = homo.build_params(model_input, dtype=_f64, device=device)
     params, axes = batch_params(base, sweep)
@@ -151,7 +152,9 @@ def run_n2_ensemble_lockstep(
     cheap_sweeps=k (df32 only): the first k Newton sweeps of every
     attempt use the plain float32 RHS, the rest the df32 one.
 
-    The inputs are made by prepare_n2_ensemble (the hybrid cast).
+    The inputs are made by prepare_n2_ensemble (the hybrid cast) on
+    ``device``: the CUDA card unless the caller names another (pass
+    device="cpu" for the CPU; with no card and no device= it raises).
 
     Returns (ys, stats) with ys (tNo+1, B, varNo*zNo) dimensionless
     states; with out_members=<int index array> (forwarded to

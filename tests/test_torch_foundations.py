@@ -174,11 +174,30 @@ def test_jax_free_ch4_case_rates_equal_fixture():
 
 
 def test_params_from_jax_default_device_is_the_ports():
-    """device=None follows config.default_device(), as every other entry
-    point of the port does."""
-    tp = params_from_jax({"T0": np.float64(523.0), "sub": {"a": [1.0, 2.0]}})
-    assert tp["T0"].device.type == tconfig.default_device().type
-    assert tp["sub"]["a"].device.type == tconfig.default_device().type
+    """device=None means the CUDA card, as at every other entry point of
+    the port; on a host without a card such a call raises, it never runs
+    quietly on the CPU."""
+    from rmt_tpu_torch.models import homo as thomo
+    from rmt_tpu_torch.parallel import prepare_n2_ensemble
+
+    assert tconfig.default_device() == torch.device("cuda")
+    tree = {"T0": np.float64(523.0), "sub": {"a": [1.0, 2.0]}}
+    mi = t_dme_case.make_model_input(model="N2")
+    if torch.cuda.is_available():
+        tp = params_from_jax(tree)
+        assert tp["T0"].device.type == "cuda"
+        assert tp["sub"]["a"].device.type == "cuda"
+        assert thomo.build_params(mi)["T0"].device.type == "cuda"
+    else:
+        calls = (lambda: params_from_jax(tree),
+                 lambda: thomo.build_params(mi),
+                 lambda: prepare_n2_ensemble(mi, {"T0": [523.0, 524.0]}))
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA card"):
+                call()
+    # naming the CPU still works everywhere
+    assert params_from_jax(tree, device="cpu")["T0"].device.type == "cpu"
+    assert thomo.build_params(mi, device="cpu")["T0"].device.type == "cpu"
 
 
 def test_params_from_jax_round_trip():

@@ -1,0 +1,119 @@
+# The launch geometry of the Newton-Schulz kernel (rmt_tpu_torch/csrc/ns.cu,
+# chosen by ops/cuda_ns.geometry) and the panel decomposition the kernel
+# follows: the update splits into independent column panels, and rho is
+# the sum of per-panel Frobenius partial sums added in panel order. A
+# plain float32 version in that order is held here to the port's twin and
+# to rmt_tpu's Pallas kernel (interpret mode); the CUDA kernel is held to
+# the twin on the card by chip_smoke.py and scripts/ns_kernel_time.py.
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rmt_tpu.ops.pallas_ns import ns_fused_step as j_step
+from rmt_tpu_torch.ops import cuda_ns
+from rmt_tpu_torch.solvers.stiff_ensemble import _transformed_tableau
+
+_W = _transformed_tableau()[4]
+EIG = dict(gamma=float(_W[0].real), mu_r=float(_W[1].real),
+           mu_i=float(_W[1].imag))
+
+# n -> (panel width, panels, padded rows, threads)
+GEOMETRY = {24: (24, 1, 32, 32), 80: (40, 2, 80, 128),
+            100: (36, 3, 112, 128), 140: (48, 3, 144, 224),
+            160: (40, 4, 160, 224)}
+
+
+@pytest.mark.parametrize("n", sorted(GEOMETRY))
+def test_geometry(n):
+    """Panel width and count, padded rows, threads and shared memory for
+    the DME (140), CH4 (80) and test (24) widths, a partial last panel
+    (100) and the widest supported class (160)."""
+    geo = cuda_ns.geometry(n)
+    assert (geo.width, geo.panels, geo.rows, geo.threads) == GEOMETRY[n]
+    assert geo.width == 4 * geo.tx and geo.rows == 8 * geo.ty
+    assert geo.panels * geo.width >= n > (geo.panels - 1) * geo.width
+    assert geo.width <= 48
+    assert geo.rows >= n and geo.rows % 16 == 0
+    assert geo.tx * geo.ty <= geo.threads <= 256 and geo.threads % 32 == 0
+    # two buffers of the three P/MP panels, two k-slab buffers of the
+    # three A operands (17 floats a row) and the reduction array, within
+    # a Hopper block's shared memory
+    want = 4 * (2 * 3 * geo.rows * geo.width + 2 * 3 * 17 * geo.rows
+                + 3 * geo.threads)
+    assert geo.smem_bytes == want <= 232_448
+
+
+@pytest.mark.parametrize("n", [0, 161, 200])
+def test_geometry_refuses_what_does_not_fit(n):
+    with pytest.raises(ValueError, match="ns_fused_step"):
+        cuda_ns.geometry(n)
+
+
+def _panel_step(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i):
+    """One Newton-Schulz step in the order of csrc/ns.cu: for each column
+    panel of cuda_ns.geometry, the three MP panels from J and the P
+    panels, the panel's Frobenius partial sums (added to the running sums
+    in panel order), then the P' panels from all rows of P and the MP
+    panels. Plain float32 torch.matmul on panels."""
+    n = J.shape[-1]
+    geo = cuda_ns.geometry(n)
+    h = h32[:, None, None]
+    g, mr, mi = gamma * h, mu_r * h, mu_i * h
+    eye = torch.eye(n, dtype=J.dtype)
+    outs = [torch.empty_like(Pr) for _ in range(3)]
+    s_r = s_c = s_i = torch.zeros(J.shape[0], dtype=J.dtype)
+    for p in range(geo.panels):
+        jp = slice(p * geo.width, min((p + 1) * geo.width, n))
+        pr, pcr, pci = Pr[..., jp], Pcr[..., jp], Pci[..., jp]
+        jpr, jpcr, jpci = J @ pr, J @ pcr, J @ pci
+        mpr = pr - g * jpr
+        mpcr = pcr - (mr * jpcr - mi * jpci)
+        mpci = pci - (mr * jpci + mi * jpcr)
+        dr, dc = eye[:, jp] - mpr, eye[:, jp] - mpcr
+        s_r = s_r + torch.sum(dr * dr, dim=(-1, -2))
+        s_c = s_c + torch.sum(dc * dc, dim=(-1, -2))
+        s_i = s_i + torch.sum(mpci * mpci, dim=(-1, -2))
+        outs[0][..., jp] = 2.0 * pr - Pr @ mpr
+        outs[1][..., jp] = 2.0 * pcr - (Pcr @ mpcr - Pci @ mpci)
+        outs[2][..., jp] = 2.0 * pci - (Pci @ mpcr + Pcr @ mpci)
+    res_r = torch.sqrt(s_r / n)
+    res_c = torch.sqrt((s_c + s_i) / n)
+    return (*outs, torch.maximum(res_r, res_c))
+
+
+def _setup(n, B=2, seed=0):
+    """Random stiff Jacobians and iterates three twin steps past the cold
+    seed (so the step contracts), float32."""
+    rng = np.random.default_rng(seed)
+    J = torch.as_tensor((-np.eye(n) * rng.uniform(1.0, 50.0, (B, 1, 1))
+                         + 0.3 * rng.standard_normal((B, n, n))
+                         ).astype(np.float32))
+    h32 = torch.as_tensor(rng.uniform(0.005, 0.02, B).astype(np.float32))
+    P = cuda_ns.ns_cold_start(J, h32, **EIG)
+    for _ in range(3):
+        *P, _ = cuda_ns.ns_fused_step_twin(J, *P, h32, *EIG.values())
+    return J, *(p.contiguous() for p in P), h32
+
+
+@pytest.mark.parametrize("n", [24, 100, 140])
+def test_panel_order_matches_twin_and_pallas(n):
+    """The panel decomposition computes the same step: within 1e-6 of the
+    twin (|d| / (1 + |twin|) on the iterates, relative on rho; only the
+    float32 summation order differs) and within the 2e-5 bar of
+    tests/test_pallas_ns.py of rmt_tpu's kernel."""
+    J, Pr, Pcr, Pci, h32 = _setup(n)
+    got = _panel_step(J, Pr, Pcr, Pci, h32, *EIG.values())
+    twin = cuda_ns.ns_fused_step_twin(J, Pr, Pcr, Pci, h32, *EIG.values())
+    for g, w, name in zip(got[:3], twin[:3], ("Pr", "Pcr", "Pci")):
+        err = float(((g.double() - w.double()).abs()
+                     / (1.0 + w.double().abs())).max())
+        assert err <= 1e-6, (name, err)
+    rho_rel = float(((got[3] - twin[3]).abs() / twin[3]).max())
+    assert rho_rel <= 1e-6
+    want = j_step(*(jnp.asarray(t.numpy()) for t in (J, Pr, Pcr, Pci, h32)),
+                  **EIG, interpret=True)
+    for g, w, name in zip(got, want, ("Pr", "Pcr", "Pci", "rho")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5, err_msg=name)

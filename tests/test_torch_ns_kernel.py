@@ -171,9 +171,12 @@ def test_cold_start_chain_matches_pallas_kernel():
 
 def test_workspace_alternates_between_its_sets():
     """A Workspace hands out the set of output buffers the input iterate
-    does not live in, so a chain of steps never writes what it reads."""
+    does not live in, so a chain of steps never writes what it reads. It
+    holds nothing else: the kernel keeps its M P intermediates in shared
+    memory, so there is no (B, 3, n, n) scratch."""
     ws = cuda_ns.Workspace(2, 5, "cpu")
-    assert tuple(ws.scratch.shape) == (2, 3, 5, 5)
+    assert vars(ws).keys() == {"sets"}
+    assert all(tuple(t.shape) == (2, 5, 5) for s in ws.sets for t in s)
     foreign = torch.zeros((2, 5, 5))
     assert ws.out_for(foreign) is ws.sets[0]
     assert ws.out_for(ws.sets[0][0]) is ws.sets[1]
