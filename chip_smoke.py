@@ -13,16 +13,23 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
   1. build: nvcc builds the block kernels (csrc/block.cu), the
      Newton-Schulz kernel (csrc/ns.cu) and the fused N2 RHS kernels
      generated for the DME and the CH4 chemistry (plain and df32 each),
-     all at once, into build/;
+     all at once, into build/, and prints each kernel's registers, spills
+     and static shared memory;
   2. each kernel against its plain PyTorch twin on the card, at the main
      paths' shapes (B = 4096 members, z = 20 nodes, m = 7 variables,
      n = 140; the RHS at M = B and M = 3B rows), each timed with CUDA
      events (median of 25 samples of 5 back-to-back calls) beside its
      twin, its roofline bound and, where one PyTorch call computes the
-     same function, that call. The block and RHS kernels equal their
-     twins bit for bit; the Newton-Schulz kernel (dense float32 products
-     against cuBLAS) is held to 2e-5, and to a float64 evaluation, at
-     n = 140, 24, 30, 80 and 100, and must refuse n = 200;
+     same function, that call; each kernel also timed with its samples
+     queued behind a sleep of the card (card_ms: the card's work alone),
+     and the wrapper's host time a call (host_ms). The block and RHS
+     kernels equal their twins bit for bit, also at a ragged member count
+     (B = 100; the RHS of both chemistries at M = 300 rows) and, for the
+     RHS, on a state that is not 16-byte aligned (the kernel's 4-byte
+     copies); each RHS result must be a contiguous row-major (M, n)
+     tensor; the Newton-Schulz kernel (dense float32 products against
+     cuBLAS) is held to 2e-5, and to a float64 evaluation, at n = 140,
+     24, 30, 80 and 100, and must refuse n = 200;
   3. the f32x DME sweep (bench.py's headline leg: df32 kinetics, exact
      block solves) at B = 4096 through
      rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, with the 64 probe
@@ -44,17 +51,24 @@ The line before the last is {"kernels": [...]}; the last line is
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 B = 4096
+# a member count that is a multiple of no kernel's tile (the RHS at M = 3
+# x RAGGED_B rows)
+RAGGED_B = 100
 SEED = 0
 REPS = 25
 GROUP = 5
+# about 1 ms of the card's clock: the host queues GROUP calls meanwhile
+SLEEP_CYCLES = 2_000_000
 # bench.py's f32x leg (LEGS["f32x"])
 F32X = dict(rtol=6e-7, atol=1e-9, max_steps=768, newton_iters=5, j_every=8,
             accurate_rates="df32", exact_solve=True, cheap_sweeps=2)
@@ -94,16 +108,18 @@ def header(torch):
     return card
 
 
-def time_ms(torch, fn):
+def _median_ms(torch, fn, sleep_cycles):
     """Median over REPS samples of the per-call milliseconds of GROUP
-    back-to-back calls between two CUDA events, after two warm-up calls
-    (back to back, so a kernel's time is not the host's launch gap)."""
+    back-to-back calls between two CUDA events, after two warm-up calls;
+    each sample's calls queued behind sleep_cycles of the card's sleep."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(REPS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if sleep_cycles:
+            torch.cuda._sleep(sleep_cycles)
         a.record()
         for _ in range(GROUP):
             fn()
@@ -111,6 +127,41 @@ def time_ms(torch, fn):
         b.synchronize()
         times.append(a.elapsed_time(b) / GROUP)
     return statistics.median(times)
+
+
+def time_ms(torch, fn):
+    """Median over REPS samples of the per-call milliseconds of GROUP
+    back-to-back calls between two CUDA events, after two warm-up calls
+    (back to back, so a kernel's time is not the host's launch gap). Where
+    a wrapper's host time exceeds its kernel's, this measures the host."""
+    return _median_ms(torch, fn, 0)
+
+
+def card_time_ms(torch, fn):
+    """time_ms with each sample's GROUP calls queued behind about 1 ms of
+    the card's sleep (SLEEP_CYCLES), long enough for the host to queue
+    them, so the events time the card's work and not the host's rate of
+    launching it."""
+    return _median_ms(torch, fn, SLEEP_CYCLES)
+
+
+def host_ms(torch, fn, calls=50):
+    """The host's milliseconds a call of fn: calls enqueued back to back,
+    the clock stopped before the card is synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e3
+
+
+def kernel_times(torch, fn, host_calls=50):
+    """A kernel wrapper's three times: ms (time_ms), card_ms and host_ms."""
+    return dict(ms=time_ms(torch, fn), card_ms=card_time_ms(torch, fn),
+                host_ms=host_ms(torch, fn, host_calls))
 
 
 def bound(n_bytes, n_ops):
@@ -128,12 +179,13 @@ def rel_err(got, want, floor):
     return float((d / (want.double().abs() + floor)).max()), float(d.max())
 
 
-def block_phase(torch, np, cuda_block, tableau, dev):
-    """The three block kernels against their twins on random stiff
-    block-bidiagonal systems (the inputs of tests/test_pallas_block.py)."""
+def block_inputs(torch, np, cuda_block, tableau, dev):
+    """Random stiff block-bidiagonal systems (the inputs of
+    tests/test_pallas_block.py) at B members, z = 20 nodes, m = 7, in
+    numpy and as the kernels' member-last tensors, with the Radau shifts
+    and block_apply's constants."""
     _, A_np, _, _, w, T, Tinv = tableau
     gamma, mu_r, mu_i = float(w[0].real), float(w[1].real), float(w[1].imag)
-    coef = cuda_block.apply_coefficients(gamma, mu_r, mu_i, T, Tinv)
     z, m = 20, 7
     n = m * z
     rng = np.random.default_rng(SEED)
@@ -144,12 +196,25 @@ def block_phase(torch, np, cuda_block, tableau, dev):
     R = rng.standard_normal((B, 3, n)).astype(np.float32)
     e = rng.standard_normal((B, n)).astype(np.float32)
     on = lambda a: torch.as_tensor(a, device=dev)
-    Jd_t = on(Jd.transpose(1, 2, 3, 0)).contiguous()
-    Jl_t = on(Jl.transpose(1, 2, 3, 0)).contiguous()
-    h_t = on(h)
-    R_t = on(R.reshape(B, 3, m, z).transpose(1, 2, 3, 0)).contiguous()
-    e_t = on(e.reshape(B, m, z).transpose(1, 2, 0)).contiguous()
-    kw = dict(gamma=gamma, mu_r=mu_r, mu_i=mu_i)
+    return SimpleNamespace(
+        A_np=A_np, z=z, m=m, n=n, Jd=Jd, Jl=Jl, h=h, R=R,
+        kw=dict(gamma=gamma, mu_r=mu_r, mu_i=mu_i),
+        coef=cuda_block.apply_coefficients(gamma, mu_r, mu_i, T, Tinv),
+        Jd_t=on(Jd.transpose(1, 2, 3, 0)).contiguous(),
+        Jl_t=on(Jl.transpose(1, 2, 3, 0)).contiguous(),
+        h_t=on(h),
+        R_t=on(R.reshape(B, 3, m, z).transpose(1, 2, 3, 0)).contiguous(),
+        e_t=on(e.reshape(B, m, z).transpose(1, 2, 0)).contiguous())
+
+
+def block_phase(torch, np, cuda_block, tableau, dev):
+    """The three block kernels against their twins on block_inputs."""
+    x = block_inputs(torch, np, cuda_block, tableau, dev)
+    A_np, z, m, n = x.A_np, x.z, x.m, x.n
+    Jd, Jl, h, R, kw, coef = x.Jd, x.Jl, x.h, x.R, x.kw, x.coef
+    Jd_t, Jl_t, h_t, R_t, e_t = x.Jd_t, x.Jl_t, x.h_t, x.R_t, x.e_t
+    gamma, mu_r, mu_i = kw["gamma"], kw["mu_r"], kw["mu_i"]
+    on = lambda a: torch.as_tensor(a, device=dev)
 
     fk = cuda_block.block_factor(Jd_t, h_t, **kw)
     ft = cuda_block.block_factor_twin(Jd_t, h_t, gamma, mu_r, mu_i)
@@ -160,6 +225,12 @@ def block_phase(torch, np, cuda_block, tableau, dev):
     # the factor is held through its apply: the twin apply of the kernel's
     # factors against the all-twin chain
     dk_kt = cuda_block.block_apply_twin(R_t, *fk, Jl_t, h_t, coef)
+    # a ragged member count: the first RAGGED_B members, a multiple of no
+    # block_apply tile
+    cut = lambda t: t[..., :RAGGED_B].contiguous()
+    args_r = (cut(R_t), *map(cut, fk), cut(Jl_t), cut(h_t))
+    dk_r = cuda_block.block_apply(*args_r, coef=coef)
+    dk_rt = cuda_block.block_apply_twin(*args_r, coef)
     torch.cuda.synchronize()
 
     # bars of tests/test_pallas_block.py: 5e-4 for the stage solve (the
@@ -171,7 +242,9 @@ def block_phase(torch, np, cuda_block, tableau, dev):
     rel_r, abs_r = rel_err(x_k, x_t, 1e-3)
     say(f"block_factor: max_abs_err {abs_f:.3e}; through its apply rel "
         f"{rel_f:.3e} (bar 5e-4)")
-    say(f"block_apply: rel {rel_a:.3e} (bar 5e-4), abs {abs_a:.3e}")
+    abs_a = max(abs_a, float((dk_r - dk_rt).abs().max()))
+    say(f"block_apply: rel {rel_a:.3e} (bar 5e-4), abs {abs_a:.3e} at "
+        f"B = {B} and {RAGGED_B} (ragged)")
     say(f"block_apply_real: rel {rel_r:.3e} (bar 5e-5), abs {abs_r:.3e}")
     check(rel_f < 5e-4, f"block_factor through its apply rel {rel_f}")
     check(rel_a < 5e-4, f"block_apply rel {rel_a}")
@@ -212,14 +285,15 @@ def block_phase(torch, np, cuda_block, tableau, dev):
     res = {}
     res["block_factor"] = dict(
         max_abs_err=abs_f,
-        ms=time_ms(torch, lambda: cuda_block.block_factor(Jd_t, h_t, **kw)),
+        **kernel_times(torch, lambda: cuda_block.block_factor(
+            Jd_t, h_t, **kw)),
         plain_ms=time_ms(torch, lambda: cuda_block.block_factor_twin(
             Jd_t, h_t, gamma, mu_r, mu_i)),
         library_ms=time_ms(torch, lambda: torch.linalg.inv(M_r)),
         **bound(4 * mat + 4 * B, B * z * (3 * gj + 4 * m ** 3 + 8 * m * m)))
     res["block_apply"] = dict(
         max_abs_err=abs_a,
-        ms=time_ms(torch, lambda: cuda_block.block_apply(
+        **kernel_times(torch, lambda: cuda_block.block_apply(
             R_t, *fk, Jl_t, h_t, coef=coef)),
         plain_ms=time_ms(torch, lambda: cuda_block.block_apply_twin(
             R_t, *ft, Jl_t, h_t, coef)),
@@ -228,7 +302,7 @@ def block_phase(torch, np, cuda_block, tableau, dev):
                 B * z * (16 * m * m + 12 * m + 30 * m)))
     res["block_apply_real"] = dict(
         max_abs_err=abs_r,
-        ms=time_ms(torch, lambda: cuda_block.block_apply_real(
+        **kernel_times(torch, lambda: cuda_block.block_apply_real(
             e_t, fk[0], Jl_t, h_t, gamma=gamma)),
         plain_ms=time_ms(torch, lambda: cuda_block.block_apply_real_twin(
             e_t, ft[0], Jl_t, h_t, gamma)),
@@ -245,25 +319,69 @@ def scaled_err(got, want):
     return float((d / scale).max()), float(d.max())
 
 
-def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
-    """Both fused RHS kernels against their twin at M = B and M = 3B, on a
-    perturbed DME state (the input of tests/test_fused_rhs.py), and the
-    df32 kernel against the plain one on distance to the float64 RHS."""
+def perturbed_state(torch, np, ens):
+    """The ensemble's initial states perturbed by up to 5% (the input of
+    tests/test_fused_rhs.py), float32 (B, n)."""
     rng = np.random.default_rng(SEED)
     pert = 1.0 + 0.05 * rng.uniform(size=tuple(ens.y0.shape))
-    y = (ens.y0.double() * torch.as_tensor(pert, device=ens.y0.device)).to(
-        torch.float32)
+    return (ens.y0.double() * torch.as_tensor(
+        pert, device=ens.y0.device)).to(torch.float32)
+
+
+def ragged_rows(torch, y, ens):
+    """(y, leaves1, leaves2) of RAGGED_B members (the ensemble's members
+    repeated in order where it has fewer) stacked as three stages: M =
+    300 rows, a multiple of neither RHS tile height."""
+    idx = torch.arange(RAGGED_B, device=y.device) % y.shape[0]
+    yb = y[idx]
+    return (torch.cat([yb, yb * 1.01, yb * 0.99]).contiguous(),
+            ens.leaves1[:, idx].contiguous(),
+            ens.leaves2[:, :, idx].contiguous())
+
+
+def misaligned(torch, t):
+    """A contiguous copy of t that starts one float into a larger buffer:
+    not 16-byte aligned, so the RHS wrapper takes its kernel's 4-byte
+    copies."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    check(out.is_contiguous() and out.data_ptr() % 16 != 0,
+          "the misaligned copy is 16-byte aligned")
+    return out
+
+
+def check_row_major(got, shape, name):
+    """The RHS hands back a contiguous row-major (M, n) tensor."""
+    check(tuple(got.shape) == tuple(shape) and got.is_contiguous()
+          and got.stride() == (shape[1], 1),
+          f"{name}: result of shape {tuple(got.shape)}, strides "
+          f"{got.stride()} is not a contiguous row-major {tuple(shape)}")
+
+
+def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
+    """Both fused RHS kernels against their twin at M = B, M = 3B (also
+    from a start that is not 16-byte aligned) and the ragged M = 300, on
+    a perturbed DME state (the input of tests/test_fused_rhs.py), each
+    result a contiguous row-major tensor, and the df32 kernel against the
+    plain one on distance to the float64 RHS."""
+    y = perturbed_state(torch, np, ens)
     y3 = torch.cat([y, y * 1.01, y * 0.99], dim=0)
     ref64 = rhs64(y)
     res, err64 = {}, {}
+    ragged = ragged_rows(torch, y, ens)
     for mode, rhs_f in rhs_fns.items():
         df32_mode = mode == "df32"
         worst, worst_abs = 0.0, 0.0
-        for yy in (y, y3):
-            got = rhs_f(yy, ens.leaves1, ens.leaves2)
+        for yy, l1, l2 in ((y, ens.leaves1, ens.leaves2),
+                           (y3, ens.leaves1, ens.leaves2), ragged,
+                           (misaligned(torch, y3), ens.leaves1,
+                            ens.leaves2)):
+            got = rhs_f(yy, l1, l2)
             want = cuda_rhs.n2_rhs_twin(ens.spec, df32_mode, ens.ko_keys, yy,
-                                        ens.leaves1, ens.leaves2)
+                                        l1, l2)
             torch.cuda.synchronize()
+            check_row_major(got, yy.shape, rhs_f.kernel_name)
             rel, dmax = scaled_err(got, want)
             worst, worst_abs = max(worst, rel), max(worst_abs, dmax)
         name = rhs_f.kernel_name
@@ -271,7 +389,8 @@ def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
         # bar of tests/test_fused_rhs.py: a few f32 ulps through the
         # ~1e3-amplifying kinetics cancellation (libm and prefix order)
         say(f"{name}: rel {worst:.3e} (bar 5e-5), abs {worst_abs:.3e} "
-            f"at M = B and 3B; against float64 {err64[name]:.3e}")
+            f"at M = B, 3B, {ragged[0].shape[0]} (ragged) and 3B not "
+            f"16-byte aligned; against float64 {err64[name]:.3e}")
         check(worst < 5e-5, f"{name} rel {worst}")
         # and bit for bit: the twin runs the kernel's operations in its
         # order, nvcc builds with -fmad=false and libm calls are the same
@@ -288,7 +407,8 @@ def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
         n_ops = rhs_f.operations() * y3.shape[0] * ens.spec.z_no
         res[name] = dict(
             max_abs_err=worst_abs,
-            ms=time_ms(torch, lambda: rhs_f(y3, ens.leaves1, ens.leaves2)),
+            **kernel_times(torch, lambda: rhs_f(y3, ens.leaves1,
+                                                ens.leaves2)),
             plain_ms=time_ms(torch, lambda: cuda_rhs.n2_rhs_twin(
                 ens.spec, df32_mode, ens.ko_keys, y3, ens.leaves1,
                 ens.leaves2)),
@@ -308,23 +428,27 @@ def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
 
 def rhs_guard(torch, np, cuda_rhs, rhs_fns, ens):
     """The RHS kernels generated for a second chemistry against their
-    twins, bit for bit, at the stage-stacked M = 3B rows."""
-    rng = np.random.default_rng(SEED)
-    pert = 1.0 + 0.05 * rng.uniform(size=tuple(ens.y0.shape))
-    y = (ens.y0.double() * torch.as_tensor(pert, device=ens.y0.device)).to(
-        torch.float32)
+    twins, bit for bit, at the stage-stacked M = 3B rows and at the ragged
+    M = 300 (its 16 members repeated), also from a start that is not
+    16-byte aligned."""
+    y = perturbed_state(torch, np, ens)
     y3 = torch.cat([y, y * 1.01, y * 0.99], dim=0)
     for mode, rhs_f in rhs_fns.items():
-        got = rhs_f(y3, ens.leaves1, ens.leaves2)
-        want = cuda_rhs.n2_rhs_twin(ens.spec, mode == "df32", ens.ko_keys,
-                                    y3, ens.leaves1, ens.leaves2)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), "CH4 RHS is not finite")
-        dmax = float((got - want).abs().max())
-        say(f"ch4 {rhs_f.kernel_name}: max_abs_err {dmax:.3e} against its "
-            f"twin at M = {y3.shape[0]} rows, n = {y3.shape[1]}")
-        check(dmax == 0.0, f"CH4 {rhs_f.kernel_name} differs from its twin "
-              f"by {dmax}")
+        ragged = ragged_rows(torch, y, ens)
+        for yy, l1, l2 in ((y3, ens.leaves1, ens.leaves2), ragged,
+                           (misaligned(torch, ragged[0]), *ragged[1:])):
+            got = rhs_f(yy, l1, l2)
+            want = cuda_rhs.n2_rhs_twin(ens.spec, mode == "df32",
+                                        ens.ko_keys, yy, l1, l2)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "CH4 RHS is not finite")
+            check_row_major(got, yy.shape, f"ch4 {rhs_f.kernel_name}")
+            dmax = float((got - want).abs().max())
+            say(f"ch4 {rhs_f.kernel_name}: max_abs_err {dmax:.3e} against "
+                f"its twin at M = {yy.shape[0]} rows, n = {yy.shape[1]}, "
+                f"16-byte aligned {yy.data_ptr() % 16 == 0}")
+            check(dmax == 0.0, f"CH4 {rhs_f.kernel_name} differs from its "
+                  f"twin by {dmax} at M = {yy.shape[0]}")
 
 
 def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
@@ -454,8 +578,8 @@ def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
     ops = 16 * n ** 3 * Bn
     res = dict(
         max_abs_err=abs_tw,
-        ms=time_ms(torch, lambda: cuda_ns.ns_fused_step(
-            J, *P, h, **eig, workspace=ws)),
+        **kernel_times(torch, lambda: cuda_ns.ns_fused_step(
+            J, *P, h, **eig, workspace=ws), host_calls=5),
         plain_ms=time_ms(torch, lambda: cuda_ns.ns_fused_step_twin(
             J, *P, h, *eig.values())),
         library_ms=time_ms(torch, three_bmm),
@@ -589,17 +713,27 @@ def main():
 
     rhs_fns, rhs_ch4 = fused(ens), fused(ens_ch4)
     t0 = time.perf_counter()
+    block_src = (_build.CSRC / "block.cu").read_text()
     _build.compile_sources(
-        [("block", (_build.CSRC / "block.cu").read_text()),
-         cuda_ns.build_job()]
+        [("block", block_src), cuda_ns.build_job()]
         + [(f.kernel_name, f.source())
            for f in (*rhs_fns.values(), *rhs_ch4.values())])
     say(f"build: {time.perf_counter() - t0:.1f} s (nvcc, all sources at "
         f"once, into {_build.build_dir()})")
-    ns_log = _build.library_path(*cuda_ns.build_job()).with_suffix(".log")
-    for line in ns_log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"build: ns.cu: {line.strip()}")
+    # registers, spills and static shared memory of every kernel the paths
+    # launch (the block kernels at the two chemistries' m = 7 and m = 4)
+    for label, path in (("block.cu", _build.library_path("block", block_src)),
+                        ("ns.cu", _build.library_path(*cuda_ns.build_job())),
+                        *((f"{f.kernel_name} ({chem})",
+                           _build.library_path(f.kernel_name, f.source()))
+                          for chem, fns in (("dme", rhs_fns),
+                                            ("ch4", rhs_ch4))
+                          for f in fns.values())):
+        for kern, regs, sst, sld, smem in _build.compiler_report(path):
+            if label == "block.cu" and not re.search(r"<[47][,>]", kern):
+                continue
+            say(f"build: {label}: {kern}: {regs} registers, spill stores "
+                f"{sst} B, spill loads {sld} B, static shared {smem} B")
 
     tableau = _transformed_tableau()
     res = block_phase(torch, np, cuda_block, tableau, dev)
@@ -627,7 +761,9 @@ def main():
         say(f"time {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} "
             f"ms, library {lib}, bound {v['bound_ms']:.4f} ms by "
             f"{v['bound_by']} ({v['bound_ms'] / v['ms']:.3f} of it; median "
-            f"of {REPS} x {GROUP} calls) on {card}")
+            f"of {REPS} x {GROUP} calls); queued on the card "
+            f"{v['card_ms']:.4f} ms; the wrapper's host time "
+            f"{v['host_ms']:.4f} ms a call; on {card}")
 
     counts = (cuda_block.LAUNCHES, cuda_rhs.LAUNCHES, cuda_ns.LAUNCHES)
     by_path = {

@@ -10,24 +10,33 @@
 //   block_apply_real <- pallas_block.block_apply_real (_real_kernel)
 //
 // Layouts are member-last, exactly as on the TPU: matrices (z, m, m, B),
-// stage vectors (3, m, z, B), vectors (m, z, B). On Hopper the natural
-// shape is one thread per member (per member and node for the factor):
-// the member index is the fastest-moving axis, so a warp's 32 threads
-// read 32 neighbouring floats on every load.
+// stage vectors (3, m, z, B), vectors (m, z, B). The member index is the
+// fastest-moving axis, so a warp whose lanes are neighbouring members
+// reads whole 128-byte lines on every load.
 //
-// What bounds them on an H100: these are latency-bound, not bandwidth- or
-// FLOP-bound. block_apply / block_apply_real run one thread per member
-// with a sequential recurrence over the z nodes, so at B = 4096 the grid
-// is 32 blocks of 128 threads on a 132-SM card (a quarter of the SMs,
-// one warp scheduler slot each): the dependent 7x7 matvec chain per node
-// is exposed. block_factor has z*B = 81,920 threads but each runs three
-// 7x7 Gauss-Jordan inversions with ~200 live floats, so register
-// pressure limits occupancy. The design keeps every intermediate in
-// registers (fully unrolled over the compile-time block size M, so row
-// swaps are selects, never dynamic indexing) and reads each matrix from
-// device memory once per call. Splitting the recurrence across threads
-// (a parallel scan over z, or a warp per member) is the redesign a later
-// change should measure.
+// What bounds them on an H100. block_apply moves every Minv and Jl block
+// once (78 MB at B = 4096, m = 7, z = 20: 23 us at 3.35 TB/s) while its
+// arithmetic is a recurrence over the z nodes, so it is bound by bytes
+// if, and only if, enough of them are in flight. One thread per member
+// would leave 100 of 132 SMs idle at B = 4096 and expose the node's seven
+// dependent matvecs and their 392 loads. So a block takes a tile of 32
+// members (kApplyMembers; apply_geometry in ops/cuda_block.py) with m
+// warps' worth of threads: thread (lane, i) owns row i of every block
+// and variable i of every vector of member b0 + lane. Each load of
+// a matrix entry (i, j) is one line for the warp; a node's blocks and R
+// slab (4m + 3 loads a thread) are fetched two nodes ahead into
+// registers while a node computes; the recurrence vectors pass between rows
+// through shared memory, with the real and the complex recurrence in the
+// same two phases (two barriers a node). Each row's dot product keeps
+// the j order of the twin, so the result is bit for bit the twin's.
+// block_apply_real still runs one thread per member (a sequential
+// recurrence over the nodes, latency-bound at low occupancy), and
+// block_factor one thread per member and node: three 7x7 Gauss-Jordan
+// inversions with ~200 live floats, so register pressure limits
+// occupancy. Both keep every intermediate in registers (fully unrolled
+// over the compile-time block size M, so row swaps are selects, never
+// dynamic indexing) and read each matrix from device memory once per
+// call.
 //
 // Numerics: partial pivoting takes the FIRST maximum (ties go to the
 // lowest row), as the TPU kernel does. Built with -fmad=false so each
@@ -38,6 +47,9 @@
 namespace {
 
 constexpr int kThreads = 128;
+// block_apply's members a block: a warp's lanes, so a warp's load of one
+// matrix entry is one 128-byte line (cuda_block.apply_geometry)
+constexpr int kApplyMembers = 32;
 
 template <int M>
 __device__ __forceinline__ void gj_inverse(float (&A)[M][2 * M]) {
@@ -193,81 +205,109 @@ struct ApplyCoef {
   float gamma, mu_r, mu_i;
 };
 
+// node z's operands of thread (lane, i): row i of Jl_z, Minv_r_z,
+// Minv_cr_z and Minv_ci_z, and variable i of the three R stages
 template <int M>
-__global__ void __launch_bounds__(kThreads)
+struct NodeRow {
+  float jl[M], mr[M], mcr[M], mci[M], r[3];
+};
+
+template <int M>
+__device__ __forceinline__ void load_node(NodeRow<M>& o, const float* r,
+                                          const float* minv_r,
+                                          const float* minv_cr,
+                                          const float* minv_ci,
+                                          const float* jl, long row,
+                                          long rvec, long sB, int z, int Z) {
+  const long at = z * (long)M * M * sB + row;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    o.jl[j] = __ldg(jl + at + j * sB);
+    o.mr[j] = __ldg(minv_r + at + j * sB);
+    o.mcr[j] = __ldg(minv_cr + at + j * sB);
+    o.mci[j] = __ldg(minv_ci + at + j * sB);
+  }
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+    o.r[s] = __ldg(r + rvec + ((long)s * M * Z + z) * sB);
+}
+
+// row . x in the twin's order: acc = a[0] x[0]; acc = acc + a[j] x[j]
+template <int M>
+__device__ __forceinline__ float rowdot(const float (&a)[M],
+                                        const float (*x)[kApplyMembers],
+                                        int lane) {
+  float acc = a[0] * x[0][lane];
+#pragma unroll
+  for (int j = 1; j < M; ++j) acc = acc + a[j] * x[j][lane];
+  return acc;
+}
+
+template <int M>
+__global__ void __launch_bounds__(M * kApplyMembers)
     apply_kernel(const float* __restrict__ r, const float* __restrict__ minv_r,
                  const float* __restrict__ minv_cr,
                  const float* __restrict__ minv_ci,
                  const float* __restrict__ jl, const float* __restrict__ h,
                  float* __restrict__ dk, int B, int Z, ApplyCoef c) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  constexpr int TB = kApplyMembers;
+  // x_{z-1} of the three recurrences, then x_z; the right-hand sides
+  __shared__ float s_x0[M][TB], s_x1r[M][TB], s_x1i[M][TB];
+  __shared__ float s_t[M][TB], s_rr[M][TB], s_ri[M][TB];
+  const int lane = threadIdx.x, i = threadIdx.y;
+  const int bm = blockIdx.x * TB + lane;
+  const bool live = bm < B;
+  const int b = live ? bm : B - 1;  // a ragged tile repeats its last member
   const float hb = h[b];
   const float g = c.gamma * hb;
   const float mr = c.mu_r * hb;
   const float mi = c.mu_i * hb;
   const long sB = B;
-  const long mat_stride = (long)M * M * B;  // one node's block
-  auto rv = [&](int s, int v, int z) {
-    return ((long)(s * M + v) * Z + z) * sB + b;
-  };
+  const long row = (long)i * M * sB + b;   // entry (i, 0) of node 0's block
+  const long rvec = (long)i * Z * sB + b;  // stage 0, variable i, node 0
 
-  float x0p[M], x1rp[M], x1ip[M];
-#pragma unroll
-  for (int v = 0; v < M; ++v) x0p[v] = x1rp[v] = x1ip[v] = 0.0f;
-
+  // nodes z, z + 1 and z + 2: two nodes' loads in flight while one computes
+  NodeRow<M> cur, nxt, far;
+  load_node<M>(cur, r, minv_r, minv_cr, minv_ci, jl, row, rvec, sB, 0, Z);
+  if (Z > 1)
+    load_node<M>(nxt, r, minv_r, minv_cr, minv_ci, jl, row, rvec, sB, 1, Z);
+  s_x0[i][lane] = s_x1r[i][lane] = s_x1i[i][lane] = 0.0f;
+  __syncthreads();
   for (int z = 0; z < Z; ++z) {
-    float w0[M], w1r[M], w1i[M];
+    if (z + 2 < Z)
+      load_node<M>(far, r, minv_r, minv_cr, minv_ci, jl, row, rvec, sB,
+                   z + 2, Z);
+    const float r0 = cur.r[0], r1 = cur.r[1], r2 = cur.r[2];
+    const float w0 = (c.w0[0] * r0 + c.w0[1] * r1) + c.w0[2] * r2;
+    const float w1r = (c.w1r[0] * r0 + c.w1r[1] * r1) + c.w1r[2] * r2;
+    const float w1i = (c.w1i[0] * r0 + c.w1i[1] * r1) + c.w1i[2] * r2;
+    // phase 1: h*mu*Jl_z x_{z-1} for the real and the complex recurrence
+    const float t = rowdot<M>(cur.jl, s_x0, lane);
+    const float ur = rowdot<M>(cur.jl, s_x1r, lane);
+    const float ui = rowdot<M>(cur.jl, s_x1i, lane);
+    s_t[i][lane] = w0 + g * t;
+    s_rr[i][lane] = (w1r + mr * ur) - mi * ui;
+    s_ri[i][lane] = (w1i + mr * ui) + mi * ur;
+    __syncthreads();
+    // phase 2: x_z = Minv_z (...), real and (Mc_r + i Mc_i) complex
+    const float x0 = rowdot<M>(cur.mr, s_t, lane);
+    const float x1r = rowdot<M>(cur.mcr, s_rr, lane) -
+                      rowdot<M>(cur.mci, s_ri, lane);
+    const float x1i = rowdot<M>(cur.mcr, s_ri, lane) +
+                      rowdot<M>(cur.mci, s_rr, lane);
+    s_x0[i][lane] = x0;
+    s_x1r[i][lane] = x1r;
+    s_x1i[i][lane] = x1i;
+    // dK = Re(T Z), Z = [z0, z1, conj(z1)]: row i needs its own x alone
+    if (live) {
 #pragma unroll
-    for (int v = 0; v < M; ++v) {
-      const float r0 = r[rv(0, v, z)], r1 = r[rv(1, v, z)],
-                  r2 = r[rv(2, v, z)];
-      w0[v] = (c.w0[0] * r0 + c.w0[1] * r1) + c.w0[2] * r2;
-      w1r[v] = (c.w1r[0] * r0 + c.w1r[1] * r1) + c.w1r[2] * r2;
-      w1i[v] = (c.w1i[0] * r0 + c.w1i[1] * r1) + c.w1i[2] * r2;
+      for (int s = 0; s < 3; ++s)
+        dk[rvec + ((long)s * M * Z + z) * sB] =
+            (c.c0[s] * x0 + c.c1[s] * x1r) - c.c2[s] * x1i;
     }
-    const float* jlz = jl + z * mat_stride + b;
-    // real recurrence: x_z = Minv_z (w_z + h*gamma*Jl_z x_{z-1})
-    float t[M], x0[M];
-    matvec<M>(jlz, sB, x0p, t);
-#pragma unroll
-    for (int v = 0; v < M; ++v) t[v] = w0[v] + g * t[v];
-    matvec<M>(minv_r + z * mat_stride + b, sB, t, x0);
-    // complex recurrence with (Mc_r + i Mc_i)
-    float ur[M], ui[M], rr[M], ri[M];
-    matvec<M>(jlz, sB, x1rp, ur);
-    matvec<M>(jlz, sB, x1ip, ui);
-#pragma unroll
-    for (int v = 0; v < M; ++v) {
-      rr[v] = (w1r[v] + mr * ur[v]) - mi * ui[v];
-      ri[v] = (w1i[v] + mr * ui[v]) + mi * ur[v];
-    }
-    float a[M], bb[M], x1r[M], x1i[M];
-    const float* mcr = minv_cr + z * mat_stride + b;
-    const float* mci = minv_ci + z * mat_stride + b;
-    matvec<M>(mcr, sB, rr, a);
-    matvec<M>(mci, sB, ri, bb);
-#pragma unroll
-    for (int v = 0; v < M; ++v) x1r[v] = a[v] - bb[v];
-    matvec<M>(mcr, sB, ri, a);
-    matvec<M>(mci, sB, rr, bb);
-#pragma unroll
-    for (int v = 0; v < M; ++v) x1i[v] = a[v] + bb[v];
-    // dK = Re(T Z), Z = [z0, z1, conj(z1)]
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int v = 0; v < M; ++v) {
-        dk[rv(i, v, z)] = (c.c0[i] * x0[v] + c.c1[i] * x1r[v]) -
-                          c.c2[i] * x1i[v];
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < M; ++v) {
-      x0p[v] = x0[v];
-      x1rp[v] = x1r[v];
-      x1ip[v] = x1i[v];
-    }
+    cur = nxt;
+    nxt = far;
+    __syncthreads();
   }
 }
 
@@ -352,8 +392,9 @@ int block_apply_launch(const float* r, const float* minv_r,
   c.mu_r = coef[19];
   c.mu_i = coef[20];
   cudaStream_t s = (cudaStream_t)stream;
-#define RMT_LAUNCH(MM)                                               \
-  apply_kernel<MM><<<blocks_for(B), kThreads, 0, s>>>(               \
+  const int grid = (B + kApplyMembers - 1) / kApplyMembers;
+#define RMT_LAUNCH(MM)                                                  \
+  apply_kernel<MM><<<grid, dim3(kApplyMembers, MM), 0, s>>>(            \
       r, minv_r, minv_cr, minv_ci, jl, h, dk, B, Z, c)
   RMT_DISPATCH_M(m, RMT_LAUNCH)
 #undef RMT_LAUNCH

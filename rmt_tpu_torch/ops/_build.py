@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -97,6 +98,39 @@ def compile_sources(jobs) -> list[Path]:
     return paths
 
 
+_KERNELS = ("factor_kernel", "apply_kernel", "real_kernel", "n2_rhs_kernel",
+            "ns_step_kernel")
+
+
+def compiler_report(lib: Path) -> list[tuple]:
+    """(kernel, registers, spill store bytes, spill load bytes, static
+    shared bytes) for each kernel in the build report kept beside a
+    library; a kernel template instance is named with its arguments, as
+    apply_kernel<7,32>."""
+    rows, kernel, spill = [], None, (0, 0)
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+            for k in _KERNELS:
+                if k not in kernel:
+                    continue
+                t = re.search(k + r"I((?:Li-?\d+E)+)E", kernel)
+                kernel = (f"{k}<{','.join(re.findall(r'-?\d+', t.group(1)))}>"
+                          if t else k)
+                break
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((kernel, int(m.group(1)), *spill,
+                         int(smem.group(1)) if smem else 0))
+    return rows
+
+
 def load(name: str, source: str, flags=NVCC_FLAGS) -> ctypes.CDLL:
     """The library built from ``source``, building it first if needed."""
     lib = library_path(name, source, flags)
@@ -104,6 +138,36 @@ def load(name: str, source: str, flags=NVCC_FLAGS) -> ctypes.CDLL:
         compile_sources([(name, source, flags)])
         _loaded[lib] = ctypes.CDLL(str(lib))
     return _loaded[lib]
+
+
+def check_operands(name, tensors, shapes) -> None:
+    """Raise unless every tensor is a contiguous float32 tensor on the
+    first one's device, of its shape (kept cheap: it runs on every
+    launch, and the integrator's host time bounds its speed)."""
+    import torch
+
+    dev = tensors[0].device
+    for t, shape in zip(tensors, shapes):
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != dev):
+            raise ValueError(f"{name}: every operand must be a contiguous "
+                             f"float32 tensor on {dev}")
+        if t.shape != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(shape)}")
+
+
+def stream(t) -> int:
+    """The raw handle of the current CUDA stream of t's device. PyTorch's
+    own kernel launchers read it through torch._C._cuda_getCurrentRawStream,
+    which skips building a torch.cuda.Stream object on every launch; the
+    public torch.cuda.current_stream is the way where that is absent."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.get_device())
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -9,7 +9,8 @@
 #     A = I - h*mu_r*Jd and B = -h*mu_i*Jd.
 #   * block_apply -- once per Newton sweep: W = T^-1 R, the real and
 #     complex recurrences x_z = Minv_z (w_z + h*mu*Jl_z x_{z-1}) over the
-#     nodes, and dK = Re(T Z), in one kernel.
+#     nodes, and dK = Re(T Z), in one kernel: a block of apply_geometry(m)
+#     members, one thread per (member, row of the m x m blocks).
 #   * block_apply_real -- the real-shift solve (I - h*gamma*J) x = e that
 #     smooths the embedded error estimate.
 #
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -48,19 +50,10 @@ def _lib():
     return lib
 
 
-def _check_cuda(name, tensors, shapes):
-    dev = tensors[0].device
-    for t, shape in zip(tensors, shapes):
-        if t.device != dev or t.dtype != _f32 or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: every operand must be a contiguous float32 tensor "
-                f"on {dev}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+@functools.lru_cache(maxsize=16)
+def _packed(vals):
+    """block_apply's 21 constants as the host array its launch copies."""
+    return (ctypes.c_float * len(vals))(*vals)
 
 
 # -- plain-PyTorch twins ------------------------------------------------------
@@ -166,6 +159,26 @@ def block_apply_real_twin(e_t, Minv_r_t, Jl_t, h32, gamma):
 
 # -- wrappers -----------------------------------------------------------------
 
+class ApplyGeometry(NamedTuple):
+    """Thread-block geometry of block_apply: `members` a block (the lanes
+    of a warp), `threads` = m x members (thread (lane, i) owns row i of
+    every m x m block), and the static shared memory of the six recurrence
+    vectors (m x members floats each)."""
+    members: int
+    threads: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def apply_geometry(m):
+    """block_apply's tile for m variables a node (2 <= m <= 8, the sizes
+    csrc/block.cu instantiates): 32 members a block (kApplyMembers there),
+    so every load of a matrix entry is one 128-byte line for a warp."""
+    if not 2 <= m <= 8:
+        raise ValueError(f"block_apply takes 2 <= m <= 8, not {m}")
+    return ApplyGeometry(32, m * 32, 6 * m * 32 * 4)
+
+
 def apply_coefficients(gamma, mu_r, mu_i, T, Tinv):
     """Constants of block_apply from the Radau eigen-transform (numpy
     complex T, T^-1), combined in double precision as the reference
@@ -187,14 +200,14 @@ def block_factor(Jd_t, h32, *, gamma, mu_r, mu_i):
 
     Jd_t: (z, m, m, B) float32; h32: (B,) float32. Returns
     (Minv_r_t, Minv_cr_t, Minv_ci_t), each (z, m, m, B)."""
-    if Jd_t.device.type != "cuda":
+    if not Jd_t.is_cuda:
         return block_factor_twin(Jd_t, h32, gamma, mu_r, mu_i)
     z_no, m, _, B = Jd_t.shape
-    _check_cuda("block_factor", (Jd_t, h32), (Jd_t.shape, (B,)))
+    _build.check_operands("block_factor", (Jd_t, h32), (Jd_t.shape, (B,)))
     outs = [torch.empty_like(Jd_t) for _ in range(3)]
     err = _lib().block_factor_launch(
         Jd_t.data_ptr(), h32.data_ptr(), *(o.data_ptr() for o in outs),
-        B, z_no, m, gamma, mu_r, mu_i, _stream())
+        B, z_no, m, gamma, mu_r, mu_i, _build.stream(Jd_t))
     _build.check(err, "block_factor")
     LAUNCHES["block_factor"] += 1
     return tuple(outs)
@@ -204,22 +217,23 @@ def block_apply(R_t, Minv_r_t, Minv_cr_t, Minv_ci_t, Jl_t, h32, *, coef):
     """Fused triple-stage solve M dK = R for the whole ensemble.
     R_t: (3, m, z, B) float32; coef from apply_coefficients. Returns
     dK_t of the same shape."""
-    if R_t.device.type != "cuda":
+    if not R_t.is_cuda:
         return block_apply_twin(R_t, Minv_r_t, Minv_cr_t, Minv_ci_t, Jl_t,
                                 h32, coef)
     _, m, z_no, B = R_t.shape
     mat = (z_no, m, m, B)
-    _check_cuda("block_apply",
+    _build.check_operands("block_apply",
                 (R_t, Minv_r_t, Minv_cr_t, Minv_ci_t, Jl_t, h32),
                 (R_t.shape, mat, mat, mat, mat, (B,)))
     out = torch.empty_like(R_t)
-    vals = (coef["w0"] + coef["w1r"] + coef["w1i"] + coef["c0"] + coef["c1"]
-            + coef["c2"] + [coef["gamma"], coef["mu_r"], coef["mu_i"]])
-    host = (ctypes.c_float * len(vals))(*vals)
+    host = _packed(tuple(
+        coef["w0"] + coef["w1r"] + coef["w1i"] + coef["c0"] + coef["c1"]
+        + coef["c2"] + [coef["gamma"], coef["mu_r"], coef["mu_i"]]))
     err = _lib().block_apply_launch(
         R_t.data_ptr(), Minv_r_t.data_ptr(), Minv_cr_t.data_ptr(),
         Minv_ci_t.data_ptr(), Jl_t.data_ptr(), h32.data_ptr(),
-        out.data_ptr(), B, z_no, m, ctypes.cast(host, _vp), _stream())
+        out.data_ptr(), B, z_no, m, ctypes.cast(host, _vp),
+        _build.stream(R_t))
     _build.check(err, "block_apply")
     LAUNCHES["block_apply"] += 1
     return out
@@ -227,16 +241,16 @@ def block_apply(R_t, Minv_r_t, Minv_cr_t, Minv_ci_t, Jl_t, h32, *, coef):
 
 def block_apply_real(e_t, Minv_r_t, Jl_t, h32, *, gamma):
     """Real-shift solve (I - h*gamma*J) x = e. e_t: (m, z, B) float32."""
-    if e_t.device.type != "cuda":
+    if not e_t.is_cuda:
         return block_apply_real_twin(e_t, Minv_r_t, Jl_t, h32, gamma)
     m, z_no, B = e_t.shape
     mat = (z_no, m, m, B)
-    _check_cuda("block_apply_real", (e_t, Minv_r_t, Jl_t, h32),
+    _build.check_operands("block_apply_real", (e_t, Minv_r_t, Jl_t, h32),
                 (e_t.shape, mat, mat, (B,)))
     out = torch.empty_like(e_t)
     err = _lib().block_apply_real_launch(
         e_t.data_ptr(), Minv_r_t.data_ptr(), Jl_t.data_ptr(), h32.data_ptr(),
-        out.data_ptr(), B, z_no, m, gamma, _stream())
+        out.data_ptr(), B, z_no, m, gamma, _build.stream(e_t))
     _build.check(err, "block_apply_real")
     LAUNCHES["block_apply_real"] += 1
     return out

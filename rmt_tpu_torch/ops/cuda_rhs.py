@@ -20,26 +20,24 @@
 # Python float constants split hi/lo as DF32.from_value does). A program
 # the generator cannot express raises; there is no fallback.
 #
-# Layouts: the wrapper takes y (M, n) with M = s*B rows (s = 3 for the
-# stage-stacked form, stage-major: member = row % B) and the parameters
-# packed member-last by pack_leaves; it transposes y to the member-last
-# (var, z, M) layout the kernel reads, so a warp's loads are neighbouring
-# floats, and transposes the result back.
+# Layouts: the wrapper takes y (M, n) row-major with M = s*B rows (s = 3
+# for the stage-stacked form, stage-major: member = row % B) and the
+# parameters packed member-last by pack_leaves, and returns a contiguous
+# row-major (M, n) result. The kernel reads and writes those rows itself:
+# a block of spec_geometry(...).mt rows stages its contiguous span of y
+# into shared memory (16-byte copies where a row's bytes allow,
+# staging_map) and writes its result tile back the same way, so no
+# transposing copy runs around it.
 #
 # Replaces the TPU kernel rmt_tpu/ops/pallas_rhs.py::build_n2_fused
 # (rhs_f, _n2_core_ml, _shift_down, _prefix_prod_excl, _prefix_sum_excl).
-# One thread per (row, node): a block is 16 rows x 20 nodes. What bounds
-# it on an H100: arithmetic issue, not bytes -- a row reads and writes
-# 140 floats but each node thread runs the whole kinetics chain, which
-# the df32 mode expands ~10-20x into error-free-transform instructions
-# (92 registers a thread in df32 mode, 76 plain, no spills; that caps
-# residency at two 320-thread blocks an SM). The design keeps every
-# intermediate in registers and the chain fully inlined; the pressure
-# march (a prefix product and sum over the nodes) shares the nodes'
-# a_z factors through shared memory and runs as a short sequential loop
-# in each thread instead of the TPU's Hillis-Steele doubling. Splitting
-# the chain across threads, or fusing the layout transposes into the
-# kernel, is the redesign a later change should measure.
+# One thread per (row, node). What bounds it on an H100 is instruction
+# issue, not bytes (the note at the head of the generated source gives
+# the counts); the pressure march (a prefix product and sum over the
+# nodes) shares the nodes' a_z factors through shared memory and runs as
+# a short sequential loop in each thread instead of the TPU's
+# Hillis-Steele doubling, and what depends on the member alone is
+# computed once per member.
 
 from __future__ import annotations
 
@@ -47,6 +45,7 @@ import ctypes
 import functools
 import math as _math
 import operator
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,8 +65,6 @@ _D_1D = ("Cmax", "SuGaVe0", "vf", "zf", "InGaVe0", "GaMiVi", "GaDe0",
          "GaCpMeanMix0", "GaMaCoTe0", "GaHeCoTe0", "aEff")
 
 _f32 = torch.float32
-# members per thread block; a block is (_MT members) x (z nodes) threads
-_MT = 16
 
 
 def pack_leaves(p, d, ko_keys=()):
@@ -564,18 +561,135 @@ def _rates_function(spec, df32_mode, ko_keys):
     return "\n".join(lines)
 
 
+class TileGeometry(NamedTuple):
+    """Thread-block geometry of the fused RHS kernel: mt member rows a
+    block, one thread per (row, node), blockDim (mt, z_no). A block's rows
+    are one contiguous span of mt*n floats of y; it stages them into a
+    shared tile of mt rows at `pitch` floats, and writes its result from a
+    second tile of the same shape, `vec` floats a copy (4: 16-byte copies;
+    1 where a row's bytes are not a multiple of 16)."""
+    mt: int
+    threads: int
+    pitch: int
+    vec: int
+    smem_bytes: int
+
+
+# static shared memory a block may declare
+_SMEM_STATIC = 48 * 1024
+
+
+def tile_geometry(n, z_no, member_rows=0, mt=16):
+    """The fused RHS kernel's tile for rows of n = var_no * z_no floats.
+
+    mt (a power of two) is halved until the block fits 1024 threads and
+    the static shared memory: two tiles of mt x pitch floats, the pressure
+    march's factors (z_no x mt) and `member_rows` per-member rows (the
+    leaves and the per-member quantities). The pitch makes a warp's reads
+    of s_y[tx][s*z_no + zn] (and of the upwind node zn - 1) hit 32
+    distinct banks: a warp holds min(mt, 32) rows tx of g = 32 / min(mt,
+    32) consecutive nodes, so the pitch is g times an odd number."""
+    if n % z_no or n <= 0:
+        raise ValueError(f"row length {n} is not a multiple of z_no {z_no}")
+    if mt < 1 or mt & (mt - 1):
+        raise ValueError(f"mt {mt} is not a power of two")
+    while mt >= 1:
+        g = 32 // min(mt, 32)
+        pitch = n + (-n) % g
+        if (pitch // g) % 2 == 0:
+            pitch += g
+        smem = 4 * (2 * mt * pitch + (z_no + member_rows) * mt)
+        if mt * z_no <= 1024 and smem <= _SMEM_STATIC:
+            return TileGeometry(mt, mt * z_no, pitch,
+                                4 if n % 4 == 0 else 1, smem)
+        mt //= 2
+    raise ValueError(f"no tile of the fused RHS fits n = {n}, z_no = {z_no}")
+
+
+def staging_map(geo, n, rows):
+    """The kernel's copies between a block's span of rows*n floats in
+    device memory and its shared tile, as index arrays (span offset,
+    tile offset), one entry per float: copy q moves vec floats from span
+    offset q*vec to tile row r = q // (n/vec), column (q - r*(n/vec))*vec.
+    The same map stages y in and writes the result out."""
+    per_row = n // geo.vec
+    q = np.arange(rows * per_row)
+    r = q // per_row
+    c = (q - r * per_row) * geo.vec
+    k = np.arange(geo.vec)
+    src = (q * geo.vec)[:, None] + k
+    dst = (r * geo.pitch + c)[:, None] + k
+    return src.ravel(), dst.ravel()
+
+
+def _member_quantities(spec, K, leaf):
+    """The per-member quantities of the kernel (functions of the leaves
+    alone), each as (name, C expression) in n2_core_ml's order of
+    operations; `leaf` maps a leaf name to its shared-memory read."""
+    h = _hexf
+    su, eps, vf, pa = leaf("SuGaVe0"), leaf("BeVoFr"), leaf("vf"), leaf("PaDi")
+    cube = f"(({eps} * {eps}) * {eps})"
+    erg_a = f"((({h(150.0)} * {leaf('GaMiVi')}) * {su}) / ({pa} * {pa}))"
+    erg_b = f"(((1.0f - {eps}) * (1.0f - {eps})) / {cube})"
+    erg_c_coef = f"((({h(1.75)} * {su}) * {su}) / {pa})"
+    erg_d = f"((1.0f - {eps}) / {cube})"
+    q = [("v_dl", f"{su} / {vf}"),
+         ("ergcd", f"{erg_c_coef} * {erg_d}"),
+         ("b_co", f"(-({erg_a} * {erg_b})) * {h(K.dz)}"),
+         ("const_f1", f"1.0f / ({eps} * ({leaf('zf')} / {vf}))"),
+         ("inv_gmc", f"1.0f / {leaf('GaMaCoTe0')}")]
+    if not spec.iso_thermal:
+        q += [("in_ga_ve_dl", f"({su} / {eps}) / {leaf('InGaVe0')}"),
+              ("zf_vf", f"{leaf('zf')} / {vf}"),
+              ("inv_ghc", f"1.0f / {leaf('GaHeCoTe0')}")]
+    q += [(f"c_in{s}", f"{leaf(f'SpCoi0_{s}')} / {leaf('Cmax')}")
+          for s in range(spec.n_comp)]
+    return q
+
+
+# rows a block, by mode: a df32 warp that holds one node of 32 members
+# takes the same branches through the pair functions (measured faster
+# than 16 rows on an H100); the plain kernel's 64 registers fit three
+# 16-row blocks an SM
+_MT_PLAIN, _MT_DF32 = 16, 32
+
+
+def spec_geometry(spec, accurate_rates=False, ko_keys=()):
+    """tile_geometry for one spec and mode: its row length, the mode's
+    rows a block, and as member rows the leaves (leaves1's rows and
+    leaves2's) and the per-member quantities."""
+    n_leaves = len(_P_1D) + len(_D_1D) + len(ko_keys) + 2 * spec.n_comp
+    n_pm = len(_member_quantities(spec, _Consts(spec), str))
+    return tile_geometry(spec.var_no_n2 * spec.z_no, spec.z_no,
+                         n_leaves + n_pm,
+                         _MT_DF32 if accurate_rates == "df32" else _MT_PLAIN)
+
+
 def kernel_source(spec, accurate_rates=False, ko_keys=()) -> str:
     """The complete CUDA translation unit of the fused RHS for one spec
     and mode: df32 helpers, the generated rates function and the kernel
-    around it (the rest of n2_core_ml)."""
+    around it (the rest of n2_core_ml), for the tile of spec_geometry."""
     df32_mode = accurate_rates == "df32"
     K = _Consts(spec)
     nc, nz, nr = spec.n_comp, spec.z_no, spec.stoich.n_rxn
+    n = spec.var_no_n2 * nz
     rt = "df" if df32_mode else "float"
     h = _hexf
+    leaves = list(_P_1D) + list(_D_1D)
+    n1 = len(leaves) + len(ko_keys)
+    # shared row of each per-member leaf: leaves1 rows, then leaves2's
+    # SpCoi0 and mw rows
+    row = {k: i for i, k in enumerate(leaves)}
+    row.update({f"SpCoi0_{s}": n1 + s for s in range(nc)})
+    row.update({f"mw_{s}": n1 + nc + s for s in range(nc)})
+    leaf = lambda k: f"s_l[{row[k]}][tx]"
+    pm = _member_quantities(spec, K, leaf)
+    pmi = {name: i for i, (name, _) in enumerate(pm)}
+    geo = spec_geometry(spec, accurate_rates, ko_keys)
     L = []
     L.append("// Generated by rmt_tpu_torch/ops/cuda_rhs.py -- the fused N2 RHS "
              f"({'df32' if df32_mode else 'plain f32'} mode) for one chemistry.")
+    L.append(_SOURCE_NOTE)
     L.append("#include <cuda_runtime.h>")
     consts = {
         "DF_LN2_HI": _df32.LN2_HI, "DF_LN2_LO": _df32.LN2_LO,
@@ -591,40 +705,86 @@ def kernel_source(spec, accurate_rates=False, ko_keys=()) -> str:
     L.append((_build.CSRC / "df32.cuh").read_text())
     L.append(_rates_function(spec, df32_mode, ko_keys))
 
-    leaves = list(_P_1D) + list(_D_1D)
-    n1 = len(leaves) + len(ko_keys)
     K_body = []
     add = K_body.append
     add(f"constexpr int NZ = {nz};")
-    add(f"constexpr int MT = {_MT};")
+    add(f"constexpr int N = {n};")
+    add(f"constexpr int MT = {geo.mt};")
+    add(f"constexpr int PITCH = {geo.pitch};")
+    add("constexpr int THREADS = MT * NZ;")
+    add(f"constexpr int NL1 = {n1};")
+    add(f"constexpr int NL = {n1 + 2 * nc};")
+    add(f"constexpr int NPM = {len(pm)};")
     add("__device__ __forceinline__ float clampe(float c) {"
         f" return c < {h(K.eps_c)} ? {h(K.eps_c)} : c; }}")
-    add('extern "C" __global__ void __launch_bounds__(MT * NZ)')
+    add("template <int VEC>")
+    add("__global__ void __launch_bounds__(THREADS)")
     add("n2_rhs_kernel(const float* __restrict__ y, const float* __restrict__ l1,")
     add("              const float* __restrict__ l2, float* __restrict__ out,")
     add("              int M, int B) {")
+    add("  __shared__ float s_y[MT * PITCH];")
+    add("  __shared__ float s_o[MT * PITCH];")
+    add("  __shared__ float s_l[NL][MT];")
+    add("  __shared__ float s_pm[NPM][MT];")
     add("  __shared__ float s_a[NZ][MT];")
     add("  const int tx = threadIdx.x, zn = threadIdx.y;")
-    add("  const int mm = blockIdx.x * MT + tx;")
-    add("  const bool live = mm < M;")
-    add("  const long mc = live ? mm : M - 1;")
-    add("  const long b = mc % B;")
-    add("  const long sM = M, sB = B;")
-    for i, k in enumerate(leaves):
-        add(f"  const float {k} = l1[{i} * sB + b];")
+    add("  const int tid = zn * MT + tx;")
+    add("  const int mm0 = blockIdx.x * MT;")
+    add("  const int rows = min(MT, M - mm0);")
+    add("  constexpr int PER_ROW = N / VEC;")
+    add("  // 1. the block's rows of y, one contiguous span, into the padded")
+    add("  // tile (cuda_rhs.staging_map), and each member's leaves once")
+    add("  const float* __restrict__ ys = y + (long)mm0 * N;")
+    add("  for (int q = tid; q < rows * PER_ROW; q += THREADS) {")
+    add("    const int row = q / PER_ROW, col = (q - row * PER_ROW) * VEC;")
+    add("    float* d = s_y + row * PITCH + col;")
+    add("    if constexpr (VEC == 4) {")
+    add("      const float4 v = __ldg(reinterpret_cast<const float4*>(ys) + q);")
+    add("      d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;")
+    add("    } else {")
+    add("      d[0] = __ldg(ys + q);")
+    add("    }")
+    add("  }")
+    add("  for (int q = tid; q < NL * MT; q += THREADS) {")
+    add("    const int i = q / MT, t = q - i * MT;")
+    add("    const long b = min(mm0 + t, M - 1) % B;  // a ragged tile repeats its last row")
+    add("    s_l[i][t] = i < NL1 ? __ldg(l1 + i * (long)B + b)")
+    add("                        : __ldg(l2 + (i - NL1) * (long)B + b);")
+    add("  }")
+    add("  __syncthreads();")
+    add("  // 2. the per-member quantities, one thread each")
+    add("  for (int q = zn; q < NPM; q += NZ) {")
+    add("    float v;")
+    add("    switch (q) {")
+    for i, (name, expr) in enumerate(pm):
+        add(f"      case {i}: v = {expr}; break;  // {name}")
+    add("      default: v = 0.0f;")
+    add("    }")
+    add("    s_pm[q][tx] = v;")
+    add("  }")
+    add("  __syncthreads();")
+    add("  // 3. node zn of row tx; a dead row of a ragged tile computes on")
+    add("  // row 0 and is not stored")
+    add("  const float* yr = s_y + (tx < rows ? tx : 0) * PITCH;")
+    node_leaves = ["T0", "P0", "BeVoFr", "Cmax", "GaDe0", "GaCpMeanMix0"]
+    if not spec.iso_thermal:
+        node_leaves += ["Tm", "U", "aEff"]
+    for k in node_leaves:
+        add(f"  const float {k} = {leaf(k)};")
     add(f"  float ko[{max(len(ko_keys), 1)}];")
     for j in range(len(ko_keys)):
-        add(f"  ko[{j}] = l1[{len(leaves) + j} * sB + b];")
+        add(f"  ko[{j}] = s_l[{len(leaves) + j}][tx];")
     for s in range(nc):
-        add(f"  const float SpCoi0_{s} = l2[{s} * sB + b];")
-        add(f"  const float mw_{s} = l2[{nc + s} * sB + b];")
+        add(f"  const float mw_{s} = {leaf(f'mw_{s}')};")
+    for name, _ in pm:
+        add(f"  const float {name} = s_pm[{pmi[name]}][tx];")
     for s in range(nc):
-        add(f"  const float c_raw{s} = y[({s} * NZ + zn) * sM + mc];")
+        add(f"  const float c_raw{s} = yr[{s} * NZ + zn];")
         add(f"  const float c_cl{s} = clampe(c_raw{s});")
     if spec.iso_thermal:
         add("  const float T_dl = 0.0f;")
     else:
-        add(f"  const float T_dl = y[({nc} * NZ + zn) * sM + mc];")
+        add(f"  const float T_dl = yr[{nc} * NZ + zn];")
     add("  float co_re[NC_], mofri[NC_];".replace("NC_", str(nc)))
     for s in range(nc):
         add(f"  co_re[{s}] = c_cl{s} * Cmax;")
@@ -634,20 +794,11 @@ def kernel_source(spec, accurate_rates=False, ko_keys=()) -> str:
         add(f"  mofri[{s}] = co_re[{s}] / ctot;")
     add("  const float mi_mo_we = " + _chain(
         "+", [f"(mofri[{s}] * mw_{s})" for s in range(nc)]) + f" * {h(1e-3)};")
-    add("  const float su = SuGaVe0;")
-    add("  const float v_dl = su / vf;")
-    add("  const float in_ga_ve_dl = (su / BeVoFr) / InGaVe0;")
     add("  const float eps = BeVoFr;")
-    add(f"  const float erg_a = (({h(150.0)} * GaMiVi) * su) / (PaDi * PaDi);")
-    add("  const float erg_b = ((1.0f - eps) * (1.0f - eps)) / ((eps * eps) * eps);")
-    add(f"  const float erg_c_coef = (({h(1.75)} * su) * su) / PaDi;")
-    add("  const float erg_d = (1.0f - eps) / ((eps * eps) * eps);")
     add(f"  const float rg_t = ({h(K.r_const)} / mi_mo_we) * T_re;")
-    add(f"  const float a_co = 1.0f - ((erg_c_coef * erg_d) / rg_t) * {h(K.dz)};")
-    add(f"  const float b_co = (-(erg_a * erg_b)) * {h(K.dz)};")
+    add(f"  const float a_co = 1.0f - (ergcd / rg_t) * {h(K.dz)};")
     add("  s_a[zn][tx] = a_co;")
     add("  __syncthreads();")
-    add("  if (!live) return;")
     add("  // pressure march: P_k = A_k (P0 + S_k), accumulated in node order")
     add("  float A = 1.0f, S = 0.0f;")
     add("  for (int k = 0; k < zn; ++k) {")
@@ -701,35 +852,75 @@ def kernel_source(spec, accurate_rates=False, ko_keys=()) -> str:
         else:
             add("  const float ov = " + _chain("+", ov_terms) + ";")
         add("  const float qm = (Tm == 0.0f) ? 0.0f : (U * aEff) * (Tm - T_re);")
-    add("  const float const_f1 = 1.0f / (eps * (zf / vf));")
-    add("  const float inv_gmc = 1.0f / GaMaCoTe0;")
+    add("  float* o = s_o + tx * PITCH;")
+    add("  const int zu = zn > 0 ? zn - 1 : 0;  // the upwind node, in bounds")
     for s in range(nc):
-        add(f"  const float c_back{s} = zn == 0 ? SpCoi0_{s} / Cmax : "
-            f"clampe(y[({s} * NZ + zn - 1) * sM + mc]);")
+        add(f"  const float c_back{s} = zn == 0 ? c_in{s} : "
+            f"clampe(yr[{s} * NZ + zu]);")
         add(f"  const float dcdz{s} = (c_raw{s} - c_back{s}) * {h(K.inv_dz)};")
-        add(f"  out[({s} * NZ + zn) * sM + mm] = const_f1 * "
+        add(f"  o[{s} * NZ + zn] = const_f1 * "
             f"(((-v_dl) * dcdz{s}) + (ri{s} * inv_gmc));")
     if not spec.iso_thermal:
-        add(f"  const float t_back = zn == 0 ? 0.0f : y[({nc} * NZ + zn - 1) * sM + mc];")
+        add(f"  const float t_back = zn == 0 ? 0.0f : yr[{nc} * NZ + zu];")
         add(f"  const float dtdz = (T_dl - t_back) * {h(K.inv_dz)};")
-        add("  const float const_t2 = 1.0f / (((ga_de_dl * cp_mix_dl) * eps) * (zf / vf));")
-        add("  const float inv_ghc = 1.0f / GaHeCoTe0;")
+        add("  const float const_t2 = 1.0f / (((ga_de_dl * cp_mix_dl) * eps) * zf_vf);")
         add("  const float convective = (((-in_ga_ve_dl) * ga_de_dl) * cp_mix_eff_dl) * dtdz;")
-        add(f"  out[({nc} * NZ + zn) * sM + mm] = const_t2 * "
+        add(f"  o[{nc} * NZ + zn] = const_t2 * "
             "(convective + (((-ov) + qm) * inv_ghc));")
+    add("  __syncthreads();")
+    add("  // 4. the result tile to the caller's rows, row-major, the same map")
+    add("  float* __restrict__ os = out + (long)mm0 * N;")
+    add("  for (int q = tid; q < rows * PER_ROW; q += THREADS) {")
+    add("    const int row = q / PER_ROW, col = (q - row * PER_ROW) * VEC;")
+    add("    const float* src = s_o + row * PITCH + col;")
+    add("    if constexpr (VEC == 4) {")
+    add("      reinterpret_cast<float4*>(os)[q] = make_float4(src[0], src[1], src[2], src[3]);")
+    add("    } else {")
+    add("      os[q] = src[0];")
+    add("    }")
+    add("  }")
     add("}")
     add("")
+    add("// vec: floats a copy, 4 (rows of a multiple of 16 bytes, 16-byte")
+    add(f"// aligned operands) or 1; this chemistry's tile allows {geo.vec}")
     add('extern "C" int n2_rhs_launch(const float* y, const float* l1, '
-        "const float* l2, float* out, int M, int B, void* stream) {")
+        "const float* l2, float* out, int M, int B, int vec, void* stream) {")
     add("  const dim3 block(MT, NZ);")
     add("  const dim3 grid((M + MT - 1) / MT);")
-    add("  n2_rhs_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(y, l1, l2, out, M, B);")
+    add("  cudaStream_t s = (cudaStream_t)stream;")
+    if geo.vec == 4:
+        add("  if (vec == 4) {")
+        add("    n2_rhs_kernel<4><<<grid, block, 0, s>>>(y, l1, l2, out, M, B);")
+        add("    return (int)cudaGetLastError();")
+        add("  }")
+    add("  if (vec != 1) return (int)cudaErrorInvalidValue;")
+    add("  n2_rhs_kernel<1><<<grid, block, 0, s>>>(y, l1, l2, out, M, B);")
     add("  return (int)cudaGetLastError();")
     add("}")
     L.append(f"// {n1} scalar leaves per member: " + ", ".join(
         leaves + [f"ko[{j}]={k}" for j, k in enumerate(ko_keys)]))
+    L.append(f"// tile: {geo}")
     L.append("\n".join(K_body))
     return "\n".join(L) + "\n"
+
+
+_SOURCE_NOTE = """\
+// Replaces the TPU kernel rmt_tpu/ops/pallas_rhs.py::build_n2_fused (its
+// pallas_call). One thread per (row, node), a block of MT rows x NZ nodes.
+// What bounds it on an H100: instruction issue, not bytes. A row reads and
+// writes 2 x N floats, but each (row, node) thread issues the whole rate
+// chain: the DME kernel is 2,328 SASS instructions in plain mode and 7,440
+// in df32 mode (cuobjdump, NVIDIA H100 80GB HBM3), most of them on every
+// thread's path, which at M = 12,288 rows keeps the SMs' schedulers near
+// their issue rate. So the design spends no instruction twice: the block
+// reads the caller's row-major rows (one
+// contiguous span, staged into shared memory with 16-byte loads at a pitch
+// whose reads are free of bank conflicts) and writes its rows back the same
+// way, so no transposing copy runs around the kernel; each member's leaves
+// are loaded once per block, and the quantities that depend on the member
+// alone (Ergun terms, inlet concentrations, reciprocals) are computed by
+// one thread each and shared. Every operation of a node keeps the order of
+// the plain-PyTorch twin (n2_core_ml), bit for bit under -fmad=false."""
 
 
 def _chain(op, terms):
@@ -819,8 +1010,9 @@ def operation_count(spec, accurate_rates=False, ko_keys=()) -> int:
 
 def build_n2_fused(spec, accurate_rates=False, ko_keys=()):
     """Fused-RHS builder. Returns ``rhs_f(y, leaves1, leaves2) -> (M, n)``
-    where y is (M, n) f32 with M = s*B (stage-major stacking) and the
-    leaves come from pack_leaves(p, d, ko_keys). A CUDA y launches the
+    where y is a contiguous (M, n) f32 tensor with M = s*B (stage-major
+    stacking) and the leaves come from pack_leaves(p, d, ko_keys); the
+    result is a new contiguous (M, n) tensor. A CUDA y launches the
     generated kernel (built at first call); a CPU y runs the twin."""
     if accurate_rates not in (False, "df32"):
         raise ValueError("fused RHS supports accurate_rates False or 'df32'")
@@ -834,41 +1026,41 @@ def build_n2_fused(spec, accurate_rates=False, ko_keys=()):
     def source():
         return kernel_source(spec, accurate_rates, ko_keys)
 
+    geo = spec_geometry(spec, accurate_rates, ko_keys)
+    n_l1 = len(_P_1D) + len(_D_1D) + len(ko_keys)
+
     def lib():
         if state["lib"] is None:
             lib_ = _build.load(name, source())
             lib_.n2_rhs_launch.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int] * 3 + [ctypes.c_void_p]
             lib_.n2_rhs_launch.restype = ctypes.c_int
             state["lib"] = lib_
         return state["lib"]
 
     def rhs_f(y, leaves1, leaves2):
-        if y.device.type != "cuda":
+        if not y.is_cuda:
             return n2_rhs_twin(spec, df32_mode, ko_keys, y, leaves1, leaves2)
         M = y.shape[0]
         B = leaves1.shape[1]
         if y.shape != (M, n) or M % B:
             raise ValueError(f"{name}: y shape {tuple(y.shape)} does not fit "
                              f"n={n}, B={B}")
-        for t, shape in ((y, (M, n)),
-                         (leaves1, (6 + 11 + len(ko_keys), B)),
-                         (leaves2, (2, spec.n_comp, B))):
-            if (t.device != y.device or t.dtype != _f32
-                    or not t.is_contiguous() or tuple(t.shape) != shape):
-                raise ValueError(f"{name}: operands must be contiguous "
-                                 f"float32 on {y.device} with shapes "
-                                 f"{shape}")
-        y_t = y.reshape(M, var_no, z_no).permute(1, 2, 0).contiguous()
-        out_t = torch.empty_like(y_t)
+        _build.check_operands(name, (y, leaves1, leaves2),
+                              ((M, n), (n_l1, B), (2, spec.n_comp, B)))
+        out = torch.empty((M, n), dtype=_f32, device=y.device)
+        # 16-byte copies where the rows allow them and both operands are
+        # 16-byte aligned (a view into a larger tensor may not be)
+        vec = geo.vec if (y.data_ptr() | out.data_ptr()) % 16 == 0 else 1
         err = lib().n2_rhs_launch(
-            y_t.data_ptr(), leaves1.data_ptr(), leaves2.data_ptr(),
-            out_t.data_ptr(), M, B, torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), leaves1.data_ptr(), leaves2.data_ptr(),
+            out.data_ptr(), M, B, vec, _build.stream(y))
         _build.check(err, name)
         LAUNCHES[name] += 1
-        return out_t.permute(2, 0, 1).reshape(M, n)
+        return out
 
     rhs_f.source = source
+    rhs_f.geometry = geo
     rhs_f.kernel_name = name
     rhs_f.operations = lambda: operation_count(spec, accurate_rates, ko_keys)
     return rhs_f

@@ -12,6 +12,7 @@ import torch
 
 from rmt_tpu.ops import pallas_block as pb
 from rmt_tpu.solvers.stiff_ensemble import _transformed_tableau as j_tab
+from rmt_tpu_torch.ops import _build
 from rmt_tpu_torch.ops import cuda_block as cb
 from rmt_tpu_torch.solvers.stiff_ensemble import _transformed_tableau
 
@@ -135,7 +136,42 @@ def test_wrappers_reject_bad_operands_on_cuda_only():
     """The shape/dtype checks guard the CUDA launch; a CPU call goes to
     the twin, which follows the tensors it is given."""
     with pytest.raises(ValueError, match="shape"):
-        cb._check_cuda("x", (torch.zeros(2, 3),), ((3, 2),))
+        _build.check_operands("x", (torch.zeros(2, 3),), ((3, 2),))
     with pytest.raises(ValueError, match="float32"):
-        cb._check_cuda("x", (torch.zeros(2, 3, dtype=torch.float64),),
-                       ((2, 3),))
+        _build.check_operands(
+            "x", (torch.zeros(2, 3, dtype=torch.float64),), ((2, 3),))
+
+
+@pytest.mark.parametrize("m", range(2, 9))
+def test_apply_geometry(m):
+    """block_apply's tile for every block size csrc/block.cu instantiates:
+    32 members a block (a warp's lanes), one thread per (member, row), and
+    the six m x 32 recurrence vectors in shared memory, far inside the
+    227 KB a block may use and the 1024 threads; the launch's constant in
+    csrc/block.cu is the same tile."""
+    geo = cb.apply_geometry(m)
+    assert geo == (32, 32 * m, 6 * m * 32 * 4)
+    src = (_build.CSRC / "block.cu").read_text()
+    assert f"constexpr int kApplyMembers = {geo.members};" in src
+    assert geo.threads <= 1024 and geo.smem_bytes <= 227 * 1024
+    with pytest.raises(ValueError):
+        cb.apply_geometry(m + 7)
+
+
+@pytest.fixture(scope="module")
+def solved_ragged():
+    """B = 37 members: a multiple of neither block_apply tile (16, 32)."""
+    s = _setup(B=37, seed=3)
+    return _jax(s), _port(s)
+
+
+@pytest.mark.parametrize("kernel, bar", [("factor", 5e-5), ("apply", 5e-4),
+                                         ("apply_real", 5e-5)])
+def test_twins_match_pallas_at_a_ragged_count(solved_ragged, kernel, bar):
+    """The bars of the B = 7 tests above, at B = 37."""
+    (jf, jdk, jx), (tf, tdk, tx) = solved_ragged
+    pairs = {"factor": list(zip(tf, jf)), "apply": [(tdk, jdk)],
+             "apply_real": [(tx, jx)]}[kernel]
+    for got, want in pairs:
+        assert got.shape == want.shape and got.shape[-1] == 37
+        assert _rel(got, want) < bar

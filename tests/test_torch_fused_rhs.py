@@ -29,7 +29,7 @@ def _to32(tree):
                         tree)
 
 
-def _make_setup(mi, t_base):
+def _make_setup(mi, t_base, B=B):
     """Per-member float32 leaves and a state mildly off the initial value
     (kinetics and stencils active), the same numbers for both packages."""
     jspec = jhomo.build_spec(mi, z_no=20, t_no=5)
@@ -200,3 +200,116 @@ def test_wrapper_checks_rows():
         rhs(torch.zeros((6, 140)), leaves1, leaves2)
     with pytest.raises(ValueError, match="accurate_rates"):
         cuda_rhs.build_n2_fused(spec, accurate_rates=True)
+
+
+# -- the kernel's tile (layout arithmetic the CUDA kernel runs on) ------------
+
+def _warp_conflicts(geo, z_no, upwind):
+    """Bank conflicts of the kernel's reads s_y[tx][s*z_no + zn] (or of
+    the upwind node max(zn - 1, 0)) over every warp of a block: blockDim
+    (mt, z_no), so thread id zn*mt + tx; two lanes conflict when they read
+    different addresses in one of the 32 banks."""
+    worst = 0
+    tid = np.arange(geo.threads)
+    tx, zn = tid % geo.mt, tid // geo.mt
+    col = np.maximum(zn - 1, 0) if upwind else zn
+    for s in range(geo.pitch // z_no):
+        addr = tx * geo.pitch + s * z_no + col
+        for w in range(0, geo.threads, 32):
+            a = np.unique(addr[w:w + 32])
+            worst = max(worst, int(np.bincount(a % 32).max()))
+    return worst
+
+
+@pytest.mark.parametrize("n, z_no, mt, want", [
+    (140, 20, 16, (16, 320, 142, 4)),   # DME, plain
+    (140, 20, 32, (32, 640, 141, 4)),   # DME, df32
+    (80, 20, 16, (16, 320, 82, 4)),     # CH4
+    (147, 21, 16, (16, 336, 150, 1)),   # rows of 588 bytes: 4-byte copies
+    (500, 100, 16, (8, 800, 500, 4)),   # a long bed: fewer rows a block
+])
+def test_tile_geometry(n, z_no, mt, want):
+    """Rows a block, threads, pitch and copy width; at most 1024 threads
+    and 48 KB of static shared memory; 16-byte copies exactly where a row
+    is a multiple of 16 bytes (a block's span then starts 16-byte
+    aligned); the pitch keeps a warp's reads of its nodes and of their
+    upwind nodes free of bank conflicts."""
+    geo = cuda_rhs.tile_geometry(n, z_no, member_rows=43, mt=mt)
+    assert (geo.mt, geo.threads, geo.pitch, geo.vec) == want
+    assert geo.threads <= 1024 and geo.smem_bytes <= 48 * 1024
+    assert geo.pitch >= n and (geo.vec == 4) == (n * 4 % 16 == 0)
+    assert geo.smem_bytes == 4 * (2 * geo.mt * geo.pitch
+                                  + (z_no + 43) * geo.mt)
+    assert _warp_conflicts(geo, z_no, upwind=False) == 1
+    assert _warp_conflicts(geo, z_no, upwind=True) == 1
+
+
+def test_tile_geometry_rejects():
+    with pytest.raises(ValueError, match="multiple"):
+        cuda_rhs.tile_geometry(141, 20)
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_rhs.tile_geometry(140, 20, mt=12)
+    with pytest.raises(ValueError, match="no tile"):
+        cuda_rhs.tile_geometry(20 * 2048, 2048)
+
+
+@pytest.mark.parametrize("n, z_no", [(140, 20), (147, 21)])
+@pytest.mark.parametrize("rows", ["full", "ragged"])
+def test_staging_map_covers_each_element_once(n, z_no, rows):
+    """The copies of a block cover every float of its span of y exactly
+    once, each landing in its row and column of the padded tile, for a
+    full tile and for a ragged last one (M = 300 rows at mt = 16: 12)."""
+    geo = cuda_rhs.tile_geometry(n, z_no)
+    r = geo.mt if rows == "full" else 300 % geo.mt
+    src, dst = cuda_rhs.staging_map(geo, n, r)
+    assert np.array_equal(np.sort(src), np.arange(r * n))
+    assert len(np.unique(dst)) == r * n
+    assert np.array_equal(dst // geo.pitch, src // n)
+    assert np.array_equal(dst % geo.pitch, src % n)
+    assert dst.max() < geo.mt * geo.pitch
+    if geo.vec == 4:      # each 16-byte copy stays inside one row
+        assert np.all(src.reshape(-1, 4)[:, 0] % 4 == 0)
+        assert np.all(np.ptp(src.reshape(-1, 4) // n, axis=1) == 0)
+
+
+@pytest.mark.parametrize("mode", [False, "df32"])
+def test_kernel_source_carries_its_geometry(mode):
+    """The generated kernel's tile constants are spec_geometry's: 16 rows
+    a block in plain mode, 32 in df32 mode, and the launch takes the copy
+    width the wrapper chose."""
+    spec = thomo.build_spec(make_model_input(model="N2"))
+    geo = cuda_rhs.spec_geometry(spec, mode)
+    assert geo.mt == (32 if mode else 16)
+    src = cuda_rhs.kernel_source(spec, accurate_rates=mode)
+    for line in (f"constexpr int MT = {geo.mt};",
+                 f"constexpr int PITCH = {geo.pitch};",
+                 "int M, int B, int vec, void* stream)",
+                 "n2_rhs_kernel<4><<<"):
+        assert line in src
+    rhs = cuda_rhs.build_n2_fused(spec, accurate_rates=mode)
+    assert rhs.geometry == geo
+
+
+B_RAGGED = 37
+
+
+@pytest.fixture(scope="module")
+def setup_ragged():
+    return _make_setup(make_model_input(model="N2"), 523.0, B_RAGGED)
+
+
+@pytest.mark.parametrize("rows", ["B", "3B"])
+@pytest.mark.parametrize("mode", [False, "df32"])
+def test_twin_matches_pallas_at_a_ragged_count(setup_ragged, mode, rows):
+    """B = 37 members: a multiple of neither the kernel's 16- and 32-row
+    tiles nor the TPU kernel's block; the twin stays at the bar of
+    test_twin_matches_pallas."""
+    jspec, tspec, _, _, pB32, dB32, y, leaves = setup_ragged
+    yy = y if rows == "B" else _stack3(y)
+    ref = np.asarray(pallas_rhs.build_n2_fused(
+        jspec, accurate_rates=mode, interpret=True)(
+            None, jnp.asarray(yy), pB32, dB32), np.float64)
+    got = cuda_rhs.build_n2_fused(tspec, accurate_rates=mode)(
+        torch.as_tensor(yy), *leaves)
+    assert tuple(got.shape) == ref.shape == (len(yy), 140)
+    assert _scaled_rel(got.numpy(), ref) < 5e-5

@@ -4,7 +4,7 @@
 # the sum of per-panel Frobenius partial sums added in panel order. A
 # plain float32 version in that order is held here to the port's twin and
 # to rmt_tpu's Pallas kernel (interpret mode); the CUDA kernel is held to
-# the twin on the card by chip_smoke.py and scripts/ns_kernel_time.py.
+# the twin on the card by chip_smoke.py and scripts/kernel_time.py.
 
 import jax.numpy as jnp
 import numpy as np
