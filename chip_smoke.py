@@ -24,12 +24,13 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      queued behind a sleep of the card (card_ms: the card's work alone),
      and the wrapper's host time a call (host_ms). The block and RHS
      kernels equal their twins bit for bit, also at a ragged member count
-     (B = 100; the RHS of both chemistries at M = 300 rows) and, for the
-     RHS, on a state that is not 16-byte aligned (the kernel's 4-byte
-     copies); each RHS result must be a contiguous row-major (M, n)
-     tensor; the Newton-Schulz kernel (dense float32 products against
-     cuBLAS) is held to 2e-5, and to a float64 evaluation, at n = 140,
-     24, 30, 80 and 100, and must refuse n = 200;
+     (B = 100; the RHS of both chemistries at M = 300 rows), for
+     block_factor also with steps 1000 times longer (inversions that
+     pivot) and, for the RHS, on a state that is not 16-byte aligned (the
+     kernel's 4-byte copies); each RHS result must be a contiguous
+     row-major (M, n) tensor; the Newton-Schulz kernel (dense float32
+     products against cuBLAS) is held to 2e-5, and to a float64
+     evaluation, at n = 140, 24, 30, 80 and 100, and must refuse n = 200;
   3. the f32x DME sweep (bench.py's headline leg: df32 kinetics, exact
      block solves) at B = 4096 through
      rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, with the 64 probe
@@ -179,14 +180,14 @@ def rel_err(got, want, floor):
     return float((d / (want.double().abs() + floor)).max()), float(d.max())
 
 
-def block_inputs(torch, np, cuda_block, tableau, dev):
+def block_inputs(torch, np, cuda_block, tableau, dev, m=7, B=B):
     """Random stiff block-bidiagonal systems (the inputs of
-    tests/test_pallas_block.py) at B members, z = 20 nodes, m = 7, in
-    numpy and as the kernels' member-last tensors, with the Radau shifts
-    and block_apply's constants."""
+    tests/test_pallas_block.py) at B members, z = 20 nodes, m variables a
+    node (7, the DME path's), in numpy and as the kernels' member-last
+    tensors, with the Radau shifts and block_apply's constants."""
     _, A_np, _, _, w, T, Tinv = tableau
     gamma, mu_r, mu_i = float(w[0].real), float(w[1].real), float(w[1].imag)
-    z, m = 20, 7
+    z = 20
     n = m * z
     rng = np.random.default_rng(SEED)
     Jd = (5.0 * rng.standard_normal((B, z, m, m))).astype(np.float32)
@@ -226,26 +227,55 @@ def block_phase(torch, np, cuda_block, tableau, dev):
     # factors against the all-twin chain
     dk_kt = cuda_block.block_apply_twin(R_t, *fk, Jl_t, h_t, coef)
     # a ragged member count: the first RAGGED_B members, a multiple of no
-    # block_apply tile
+    # kernel's tile; and the factor at steps 1000 times longer, where the
+    # shifted blocks are far from the identity and most inversions pivot
     cut = lambda t: t[..., :RAGGED_B].contiguous()
-    args_r = (cut(R_t), *map(cut, fk), cut(Jl_t), cut(h_t))
+    Jd_r, Jl_r, h_r = cut(Jd_t), cut(Jl_t), cut(h_t)
+    fk_r = cuda_block.block_factor(Jd_r, h_r, **kw)
+    ft_r = cuda_block.block_factor_twin(Jd_r, h_r, gamma, mu_r, mu_i)
+    fk_p = cuda_block.block_factor(Jd_r, h_r * 1000.0, **kw)
+    ft_p = cuda_block.block_factor_twin(Jd_r, h_r * 1000.0, gamma, mu_r,
+                                        mu_i)
+    args_r = (cut(R_t), *map(cut, fk), Jl_r, h_r)
     dk_r = cuda_block.block_apply(*args_r, coef=coef)
     dk_rt = cuda_block.block_apply_twin(*args_r, coef)
+    args_r = (cut(e_t), cut(fk[0]), Jl_r, h_r)
+    x_r = cuda_block.block_apply_real(*args_r, gamma=gamma)
+    x_rt = cuda_block.block_apply_real_twin(*args_r, gamma)
+    # the CH4 guard's shape, m = 4 at B = 16: the kernels' m = 4
+    # instances, which only that path runs
+    y = block_inputs(torch, np, cuda_block, tableau, dev, m=4, B=16)
+    ch4 = [(cuda_block.block_factor(y.Jd_t, y.h_t * s, **kw),
+            cuda_block.block_factor_twin(y.Jd_t, y.h_t * s, gamma, mu_r,
+                                         mu_i)) for s in (1.0, 1000.0)]
+    fy = ch4[0][0]
+    ch4.append((
+        (cuda_block.block_apply(y.R_t, *fy, y.Jl_t, y.h_t, coef=coef),),
+        (cuda_block.block_apply_twin(y.R_t, *fy, y.Jl_t, y.h_t, coef),)))
+    ch4.append((
+        (cuda_block.block_apply_real(y.e_t, fy[0], y.Jl_t, y.h_t,
+                                     gamma=gamma),),
+        (cuda_block.block_apply_real_twin(y.e_t, fy[0], y.Jl_t, y.h_t,
+                                          gamma),)))
     torch.cuda.synchronize()
 
     # bars of tests/test_pallas_block.py: 5e-4 for the stage solve (the
     # complex recurrence compounds f32 rounding over 20 nodes), 5e-5 for
     # the real solve; the floor 1e-3 keeps near-zero entries meaningful
     rel_f, _ = rel_err(dk_kt, dk_t, 1e-3)
-    abs_f = max(float((a - b).abs().max()) for a, b in zip(fk, ft))
+    abs_f = max(float((a - b).abs().max())
+                for a, b in zip((*fk, *fk_r, *fk_p), (*ft, *ft_r, *ft_p)))
     rel_a, abs_a = rel_err(dk_k, dk_t, 1e-3)
     rel_r, abs_r = rel_err(x_k, x_t, 1e-3)
-    say(f"block_factor: max_abs_err {abs_f:.3e}; through its apply rel "
-        f"{rel_f:.3e} (bar 5e-4)")
+    say(f"block_factor: max_abs_err {abs_f:.3e} at B = {B}, {RAGGED_B} "
+        f"(ragged) and {RAGGED_B} with h x 1000 (pivoting); through its "
+        f"apply rel {rel_f:.3e} (bar 5e-4)")
     abs_a = max(abs_a, float((dk_r - dk_rt).abs().max()))
     say(f"block_apply: rel {rel_a:.3e} (bar 5e-4), abs {abs_a:.3e} at "
         f"B = {B} and {RAGGED_B} (ragged)")
-    say(f"block_apply_real: rel {rel_r:.3e} (bar 5e-5), abs {abs_r:.3e}")
+    abs_r = max(abs_r, float((x_r - x_rt).abs().max()))
+    say(f"block_apply_real: rel {rel_r:.3e} (bar 5e-5), abs {abs_r:.3e} at "
+        f"B = {B} and {RAGGED_B} (ragged)")
     check(rel_f < 5e-4, f"block_factor through its apply rel {rel_f}")
     check(rel_a < 5e-4, f"block_apply rel {rel_a}")
     check(rel_r < 5e-5, f"block_apply_real rel {rel_r}")
@@ -255,6 +285,13 @@ def block_phase(torch, np, cuda_block, tableau, dev):
     for name, err in (("block_factor", abs_f), ("block_apply", abs_a),
                       ("block_apply_real", abs_r)):
         check(err == 0.0, f"{name} differs from its twin by {err}")
+    for name, (got, want) in zip(
+            ("block_factor", "block_factor (h x 1000)", "block_apply",
+             "block_apply_real"), ch4):
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        say(f"{name}: max_abs_err {err:.3e} at the CH4 shape (m = 4, "
+            f"B = 16)")
+        check(err == 0.0, f"{name} at m = 4 differs from its twin by {err}")
 
     # the kernel's stage solve is exact: M dK = R with the dense Kronecker
     # operator M = I - h A (x) J, in float64, for a few members
@@ -273,12 +310,13 @@ def block_phase(torch, np, cuda_block, tableau, dev):
     say(f"block_apply: Kronecker residual {worst:.3e} (bar 5e-4)")
     check(worst < 5e-4, f"block_apply Kronecker residual {worst}")
 
-    # bounds: bytes of each operand once; operations of three m x 2m
-    # Gauss-Jordan inversions (4m^3 - 2m^2 each), two m x m products and
-    # the shifted assemblies (factor), eight m x m matvecs and the two
-    # 3 x 3 stage transforms per node (apply), two matvecs per node (real)
+    # bounds: bytes of each operand once; operations of three in-place
+    # Gauss-Jordan inversions (2m^3 - m^2 each: a column's m divisions and
+    # (m - 1) x m multiply-subtract pairs), three m x m products (2m^3 -
+    # m^2 each) and the shifted assemblies (9m^2) (factor), eight m x m
+    # matvecs and the two 3 x 3 stage transforms per node (apply), two
+    # matvecs per node (real)
     mat, vec = z * m * m * B * 4, m * z * B * 4
-    gj = 4 * m ** 3 - 2 * m ** 2
     # the library's part of block_factor: the real-shift inverses alone
     M_r = (torch.eye(m, device=dev) - (gamma * h_t)[:, None, None, None]
            * on(Jd)).reshape(B * z, m, m)
@@ -290,7 +328,7 @@ def block_phase(torch, np, cuda_block, tableau, dev):
         plain_ms=time_ms(torch, lambda: cuda_block.block_factor_twin(
             Jd_t, h_t, gamma, mu_r, mu_i)),
         library_ms=time_ms(torch, lambda: torch.linalg.inv(M_r)),
-        **bound(4 * mat + 4 * B, B * z * (3 * gj + 4 * m ** 3 + 8 * m * m)))
+        **bound(4 * mat + 4 * B, B * z * (12 * m ** 3 + 3 * m * m)))
     res["block_apply"] = dict(
         max_abs_err=abs_a,
         **kernel_times(torch, lambda: cuda_block.block_apply(

@@ -2,17 +2,33 @@
 # rmt_tpu/ops/pallas_block.py): wrappers of the CUDA kernels in
 # csrc/block.cu, each beside its plain-PyTorch twin.
 #
-#   * block_factor -- once per attempt: per member and node, the
-#     Gauss-Jordan inverse of I - h*gamma*Jd_z (partial pivoting, first
-#     maximum wins ties) and the complex-shift inverse from two real
-#     inverses, Y = (A + B A^-1 B)^-1, (A + iB)^-1 = Y - i A^-1 B Y, with
-#     A = I - h*mu_r*Jd and B = -h*mu_i*Jd.
-#   * block_apply -- once per Newton sweep: W = T^-1 R, the real and
-#     complex recurrences x_z = Minv_z (w_z + h*mu*Jl_z x_{z-1}) over the
-#     nodes, and dK = Re(T Z), in one kernel: a block of apply_geometry(m)
-#     members, one thread per (member, row of the m x m blocks).
-#   * block_apply_real -- the real-shift solve (I - h*gamma*J) x = e that
-#     smooths the embedded error estimate.
+#   * block_factor (replaces pallas_block.block_factor) -- once per
+#     attempt: per member and node, the Gauss-Jordan inverse of
+#     I - h*gamma*Jd_z (partial pivoting, first maximum wins ties) and the
+#     complex-shift inverse from two real inverses, Y = (A + B A^-1 B)^-1,
+#     (A + iB)^-1 = Y - i A^-1 B Y, with A = I - h*mu_r*Jd and
+#     B = -h*mu_i*Jd. Bound by bytes on the H100 (Jd in, three inverses
+#     out, 64 MB at the main path's B = 4096, z = 20, m = 7), in practice
+#     by instruction issue. The kernel runs one thread per (member, node)
+#     and inverts in place, in the twin's operations and order, with
+#     XB = A^-1 B in shared memory: 96 registers (a 40-byte spill) and
+#     25,088 bytes of shared memory at m = 7; factor_geometry(m) gives
+#     the launch (128 threads, five blocks an SM), which holds the main
+#     path's 640 blocks in one wave.
+#   * block_apply (replaces pallas_block.block_apply) -- once per Newton
+#     sweep: W = T^-1 R, the real and complex recurrences
+#     x_z = Minv_z (w_z + h*mu*Jl_z x_{z-1}) over the nodes, and
+#     dK = Re(T Z), in one kernel. Bound by bytes.
+#   * block_apply_real (replaces pallas_block.block_apply_real) -- the
+#     real-shift solve (I - h*gamma*J) x = e that smooths the embedded
+#     error estimate. Bound by bytes (Minv_r and Jl once, 37 MB). The
+#     kernel runs block_apply's layout on its one recurrence: 67
+#     registers, no spills, 1,792 bytes of shared memory at m = 7.
+#
+# Both recurrences run a tile of members a block (tile_geometry), one
+# thread per (member, row of the m x m blocks) with two nodes of loads in
+# flight. Registers, spills and shared memory of every instance: the
+# compiler report that chip_smoke.py prints.
 #
 # Layouts are member-last, as on the TPU: (z, m, m, B) blocks, (3, m, z, B)
 # stage vectors, (m, z, B) vectors, all float32. A CUDA tensor launches
@@ -23,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from typing import NamedTuple
 
 import torch
@@ -159,24 +176,63 @@ def block_apply_real_twin(e_t, Minv_r_t, Jl_t, h32, gamma):
 
 # -- wrappers -----------------------------------------------------------------
 
-class ApplyGeometry(NamedTuple):
-    """Thread-block geometry of block_apply: `members` a block (the lanes
-    of a warp), `threads` = m x members (thread (lane, i) owns row i of
-    every m x m block), and the static shared memory of the six recurrence
-    vectors (m x members floats each)."""
+@functools.cache
+def _constants():
+    """The launch constants of csrc/block.cu (`constexpr int kName =
+    value;`), read from the source the library is built from, so the
+    geometry below is the launch's and has no second copy."""
+    src = (_build.CSRC / "block.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def _check_m(name, m):
+    if not 2 <= m <= 8:
+        raise ValueError(f"{name} takes 2 <= m <= 8, not {m}")
+
+
+class TileGeometry(NamedTuple):
+    """Thread-block geometry of a recurrence kernel: `members` a block
+    (kTileMembers, the lanes of a warp, so every load of a matrix entry is
+    one 128-byte line for a warp), `threads` = m x members (thread (lane,
+    i) owns row i of every m x m block) and the static shared memory of
+    its recurrence vectors (m x members floats each)."""
     members: int
     threads: int
     smem_bytes: int
 
 
 @functools.lru_cache(maxsize=None)
-def apply_geometry(m):
-    """block_apply's tile for m variables a node (2 <= m <= 8, the sizes
-    csrc/block.cu instantiates): 32 members a block (kApplyMembers there),
-    so every load of a matrix entry is one 128-byte line for a warp."""
-    if not 2 <= m <= 8:
-        raise ValueError(f"block_apply takes 2 <= m <= 8, not {m}")
-    return ApplyGeometry(32, m * 32, 6 * m * 32 * 4)
+def tile_geometry(m, vectors):
+    """The tile of a recurrence kernel for m variables a node (2 <= m <=
+    8, the sizes csrc/block.cu instantiates) with `vectors` recurrence
+    vectors in shared memory: six for block_apply (x0, x1r, x1i and their
+    right-hand sides), two for block_apply_real (x and its right-hand
+    side)."""
+    _check_m("a recurrence kernel", m)
+    tb = _constants()["kTileMembers"]
+    return TileGeometry(tb, m * tb, vectors * m * tb * 4)
+
+
+class FactorGeometry(NamedTuple):
+    """block_factor's launch: `threads` a block, one per (member, node);
+    `blocks_per_sm`, the blocks an SM must hold (its __launch_bounds__,
+    which caps the registers a thread at 65536 / (threads x
+    blocks_per_sm)); the static shared memory a block, XB's m x m floats a
+    thread."""
+    threads: int
+    blocks_per_sm: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def factor_geometry(m):
+    """block_factor's launch for m variables a node, from kFactorThreads
+    and kFactorBlocksPerSM in csrc/block.cu."""
+    _check_m("block_factor", m)
+    c = _constants()
+    return FactorGeometry(c["kFactorThreads"], c["kFactorBlocksPerSM"],
+                          m * m * c["kFactorThreads"] * 4)
 
 
 def apply_coefficients(gamma, mu_r, mu_i, T, Tinv):

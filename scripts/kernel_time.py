@@ -18,8 +18,9 @@ the compiler's registers and spills of each.
   rhs    the DME fused RHS wrappers, plain and df32, at M = 3B rows of
          chip_smoke's perturbed state, each first held bit for bit to its
          twin (also at the ragged M = 300 rows);
-  block  block_apply on chip_smoke's random stiff systems, held bit for
-         bit to its twin (also at the ragged B = 100);
+  block  block_factor, block_apply and block_apply_real on chip_smoke's
+         random stiff systems, each held bit for bit to its twin at B
+         and at the ragged B = 100;
   ns     ns_fused_step at B members of edge n on random stiff Jacobians,
          with iterates three twin steps past the cold seed, held to its
          twin (2e-5 on the iterates, scaled by 1 + |twin|, and on rho
@@ -32,8 +33,11 @@ rhs and block are timed with chip_smoke.time_ms (median of 25 samples of
 5 back-to-back calls between CUDA events: chip_smoke's "ms"),
 chip_smoke.card_time_ms (the same with the calls queued behind a sleep of
 the card: the card's work) and chip_smoke.host_ms (the wrapper's host
-time a call). ns times, in turns, the kernel, each alt, the three-bmm
-formulation twice, each alt and the kernel again (time_ms), and prints
+time a call); block_factor and block_apply_real also with cold_ms (one
+call a sample, queued behind a 128 MB write that evicts the L2: their
+operands fit it, so back-to-back calls may read them from there). ns
+times, in turns, the kernel, each alt, the three-bmm formulation twice,
+each alt and the kernel again (time_ms), and prints
 TFLOP/s of the 8 * 2 n^3 operations a member needs and the share of the
 roofline bound (chip_smoke.bound). With --profile, torch.profiler sums
 the device time of each kernel that 20 calls of each rhs and block
@@ -51,6 +55,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -80,10 +85,43 @@ def sass_counts(lib_path):
     return res
 
 
+def cold_ms(cs, torch, fn, flush):
+    """Median over cs.REPS samples of one call's milliseconds between CUDA
+    events, each call queued behind a write of `flush` (more than the
+    H100's 50 MB L2) and a sleep of the card: the card's time for a call
+    that reads its operands from device memory."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(cs.REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        torch.cuda._sleep(cs.SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# block_factor's and block_apply_real's operands (64 and 37 MB) fit the
+# 50 MB L2, so their back-to-back calls may read them from there
+COLD = ("block_factor", "block_apply_real")
+
+
 def wrapper_times(cs, torch, calls):
-    """{name: chip_smoke.kernel_times} of each wrapper call."""
-    return {name: cs.kernel_times(torch, fn, host_calls=200)
-            for name, fn in calls.items()}
+    """{name: chip_smoke.kernel_times} of each wrapper call, and cold_ms
+    for the names in COLD."""
+    res, flush = {}, None
+    for name, fn in calls.items():
+        res[name] = cs.kernel_times(torch, fn, host_calls=200)
+        if name in COLD:
+            if flush is None:
+                flush = torch.empty(32 << 20, device="cuda")  # 128 MB
+            res[name]["cold_ms"] = cold_ms(cs, torch, fn, flush)
+    return res
 
 
 def rhs_calls(cs, torch, np, cuda_rhs, fns, ens):
@@ -107,22 +145,40 @@ def rhs_calls(cs, torch, np, cuda_rhs, fns, ens):
 
 
 def block_calls(cs, torch, np, cuda_block, tableau, dev):
-    """block_apply at B members, held bit for bit to its twin at B and the
-    ragged B = 100 first."""
+    """The three block wrappers at B members, each held bit for bit to its
+    twin at B and at the ragged B = 100 first."""
     x = cs.block_inputs(torch, np, cuda_block, tableau, dev)
-    fk = cuda_block.block_factor(x.Jd_t, x.h_t, **x.kw)
-    args = (x.R_t, *fk, x.Jl_t, x.h_t)
+    kw, coef = x.kw, x.coef
+    fk = cuda_block.block_factor(x.Jd_t, x.h_t, **kw)
+    # name: (wrapper, twin, operands)
+    pairs = {
+        "block_factor": (
+            lambda *a: cuda_block.block_factor(*a, **kw),
+            lambda *a: cuda_block.block_factor_twin(
+                *a, kw["gamma"], kw["mu_r"], kw["mu_i"]),
+            (x.Jd_t, x.h_t)),
+        "block_apply": (
+            lambda *a: cuda_block.block_apply(*a, coef=coef),
+            lambda *a: cuda_block.block_apply_twin(*a, coef),
+            (x.R_t, *fk, x.Jl_t, x.h_t)),
+        "block_apply_real": (
+            lambda *a: cuda_block.block_apply_real(*a, gamma=kw["gamma"]),
+            lambda *a: cuda_block.block_apply_real_twin(*a, kw["gamma"]),
+            (x.e_t, fk[0], x.Jl_t, x.h_t)),
+    }
     cut = lambda t: t[..., :cs.RAGGED_B].contiguous()
-    for a in (args, tuple(map(cut, args))):
-        got = cuda_block.block_apply(*a, coef=x.coef)
-        want = cuda_block.block_apply_twin(*a, x.coef)
-        torch.cuda.synchronize()
-        diff = float((got - want).abs().max())
-        cs.say(f"check block_apply: B = {a[0].shape[-1]}: max_abs_err {diff} "
-               f"against its twin")
-        cs.check(diff == 0.0, "block_apply differs from its twin")
-    return {"block_apply": lambda: cuda_block.block_apply(*args,
-                                                          coef=x.coef)}
+    for name, (kern, twin, args) in pairs.items():
+        for a in (args, tuple(map(cut, args))):
+            got, want = kern(*a), twin(*a)
+            torch.cuda.synchronize()
+            if name != "block_factor":
+                got, want = (got,), (want,)
+            diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            cs.say(f"check {name}: B = {a[0].shape[-1]}: max_abs_err {diff} "
+                   f"against its twin")
+            cs.check(diff == 0.0, f"{name} differs from its twin")
+    return {name: (lambda kern=kern, args=args: kern(*args))
+            for name, (kern, _, args) in pairs.items()}
 
 
 def profile_split(torch, calls):
@@ -300,8 +356,10 @@ def main():
                                  _transformed_tableau(), dev))
     result["times"] = wrapper_times(cs, torch, calls)
     for name, t in result["times"].items():
+        cold = (f", cold_ms {t['cold_ms']:.4f}" if "cold_ms" in t else "")
         cs.say(f"time {args.label}: {name}: ms {t['ms']:.4f}, card_ms "
-               f"{t['card_ms']:.4f}, host_ms {t['host_ms']:.4f} on {card}")
+               f"{t['card_ms']:.4f}{cold}, host_ms {t['host_ms']:.4f} on "
+               f"{card}")
     if args.profile:
         result["profile"] = profile_split(torch, calls)
         for name, split in result["profile"].items():

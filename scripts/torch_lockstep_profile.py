@@ -14,7 +14,9 @@ rmt_tpu_torch.parallel.run_n2_ensemble_lockstep) and prints:
     each call);
   - a torch.profiler window of two chunks (16 attempts, two refreshes):
     its wall, the device time of every kernel in it, the busy share and
-    the number of kernel launches, then the kernels by device time.
+    the number of kernel launches, then the kernels by device time, and
+    each of the port's own kernels with its calls and device time a
+    call.
 """
 
 import argparse
@@ -39,7 +41,7 @@ def main():
     sys.path.insert(0, ROOT)
     import chip_smoke
     from rmt_tpu_torch.cases.dme_case import make_model_input
-    from rmt_tpu_torch.ops import cuda_block, cuda_ns, cuda_rhs
+    from rmt_tpu_torch.ops import _build, cuda_block, cuda_ns, cuda_rhs
     from rmt_tpu_torch.parallel import run_n2_ensemble_lockstep
     from rmt_tpu_torch.solvers import stiff_ensemble
 
@@ -122,6 +124,11 @@ def main():
           f"{launches}", flush=True)
     print(ka.table(sort_by="self_device_time_total", row_limit=15,
                    max_name_column_width=50))
+    for e in sorted(ka, key=lambda e: -e.self_device_time_total):
+        if e.device_type == cuda and any(k in e.key for k in _build._KERNELS):
+            print(f"port kernel {e.key[:60]}: {e.count} calls, "
+                  f"{e.self_device_time_total / e.count:.3f} us a call",
+                  flush=True)
     print(card)
 
 

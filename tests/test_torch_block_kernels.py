@@ -145,17 +145,50 @@ def test_wrappers_reject_bad_operands_on_cuda_only():
 @pytest.mark.parametrize("m", range(2, 9))
 def test_apply_geometry(m):
     """block_apply's tile for every block size csrc/block.cu instantiates:
-    32 members a block (a warp's lanes), one thread per (member, row), and
-    the six m x 32 recurrence vectors in shared memory, far inside the
-    227 KB a block may use and the 1024 threads; the launch's constant in
-    csrc/block.cu is the same tile."""
-    geo = cb.apply_geometry(m)
+    32 members a block (kTileMembers there, a warp's lanes), one thread
+    per (member, row), and the six m x 32 recurrence vectors in static
+    shared memory, inside the 48 KB and the 1024 threads a block may
+    use."""
+    geo = cb.tile_geometry(m, 6)
     assert geo == (32, 32 * m, 6 * m * 32 * 4)
     src = (_build.CSRC / "block.cu").read_text()
-    assert f"constexpr int kApplyMembers = {geo.members};" in src
-    assert geo.threads <= 1024 and geo.smem_bytes <= 227 * 1024
+    assert f"constexpr int kTileMembers = {geo.members};" in src
+    assert geo.threads <= 1024 and geo.smem_bytes <= 48 * 1024
     with pytest.raises(ValueError):
-        cb.apply_geometry(m + 7)
+        cb.tile_geometry(m + 7, 6)
+
+
+@pytest.mark.parametrize("m", range(2, 9))
+def test_real_geometry(m):
+    """block_apply_real's tile: block_apply's layout (the same
+    kTileMembers) with its two m x 32 recurrence vectors."""
+    geo = cb.tile_geometry(m, 2)
+    assert geo == (32, 32 * m, 2 * m * 32 * 4)
+    assert geo.threads <= 1024 and geo.smem_bytes <= 48 * 1024
+    with pytest.raises(ValueError):
+        cb.tile_geometry(m + 7, 2)
+
+
+@pytest.mark.parametrize("m", range(2, 9))
+def test_factor_geometry(m):
+    """block_factor's launch, from csrc/block.cu's constants: a block's
+    threads and static shared memory (XB, m x m floats a thread) fit a
+    block's limits (1024, 48 KB) and blocks_per_sm of them an H100 SM's
+    (2048 threads, 228 KB with 1 KB reserved a block); and at the main
+    path's B = 4096 members x 20 nodes, one thread each, the blocks fit
+    the 132 SMs in one wave."""
+    geo = cb.factor_geometry(m)
+    assert geo == (128, 5, m * m * 128 * 4)
+    src = (_build.CSRC / "block.cu").read_text()
+    assert f"constexpr int kFactorThreads = {geo.threads};" in src
+    assert f"constexpr int kFactorBlocksPerSM = {geo.blocks_per_sm};" in src
+    assert geo.threads <= 1024 and geo.smem_bytes <= 48 * 1024
+    assert geo.blocks_per_sm * geo.threads <= 2048
+    assert geo.blocks_per_sm * (geo.smem_bytes + 1024) <= 228 * 1024
+    blocks = -(-4096 * 20 // geo.threads)
+    assert blocks <= 132 * geo.blocks_per_sm
+    with pytest.raises(ValueError):
+        cb.factor_geometry(m + 7)
 
 
 @pytest.fixture(scope="module")
