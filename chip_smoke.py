@@ -31,6 +31,9 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      row-major (M, n) tensor; the Newton-Schulz kernel (dense float32
      products against cuBLAS) is held to 2e-5, and to a float64
      evaluation, at n = 140, 24, 30, 80 and 100, and must refuse n = 200;
+     it is also held to 2e-5 at the N1 shapes (B = 4096; n = 8, and n = 7
+     of the iso-thermal process; J the N1 Jacobians at the sweep's inlet)
+     and timed at n = 8 beside its twin, three torch.bmm and its bound;
   3. the f32x DME sweep (bench.py's headline leg: df32 kinetics, exact
      block solves) at B = 4096 through
      rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, with the 64 probe
@@ -44,12 +47,23 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      preconditioners) the same way, under a 5e-5 bar that guards against
      a broken solve (bench.py sets no accuracy bar for this leg);
   5. the CH4 second-chemistry guard: the f32x options on the CH4 case at
-     its 16 probe temperatures, <= 1e-6.
+     its 16 probe temperatures, <= 1e-6;
+  6. the N1 steady sweep of scripts/bench_torch_n1.py: B = 4096 members
+     (inlet temperature 523 +- 5 K) in float32 with dense output and the
+     Newton-Schulz preconditioners (ns_fused_step at n = 8) from the
+     integrator's default Jacobian: every member must finish, every state
+     be finite, the 8 probes stay <= 5e-5 against float64 trajectories by
+     scipy's Radau (rtol 1e-10) on the port's N1 RHS, computed on the CPU
+     by a child process that starts with the script, and ns_fused_step
+     must launch as often as the chunks, refreshes and rescues say;
+  7. microbatch: the f32x options at B = 512 with microbatch=256 equal,
+     member by member and bit for bit, two separate calls of 256.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import io
 import json
 import os
 import re
@@ -84,6 +98,9 @@ PEAK_F32_S = 67e12
 F32X_KERNELS = ("block_factor", "block_apply", "block_apply_real",
                 "n2_rhs_df32", "n2_rhs_plain")
 F32_KERNELS = ("ns_fused_step", "n2_rhs_plain")
+N1_KERNELS = ("ns_fused_step",)
+# the microbatch check: MICRO_B members in slices of MICROBATCH
+MICRO_B, MICROBATCH = 512, 256
 
 
 def say(*args):
@@ -494,16 +511,9 @@ def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
     dense Jacobian of the sweep's members at y0, h the integrator's first
     step times a spread of 1 ... 100, P the cold seed after three twin
     iterations (so the step contracts)."""
-    w = tableau[4]
-    eig = dict(gamma=float(w[0].real), mu_r=float(w[1].real),
-               mu_i=float(w[1].imag))
+    eig = ns_eig(tableau)
     Bn, n, _ = J.shape
-    spread = torch.logspace(0.0, 2.0, Bn, device=dev, dtype=torch.float32)
-    h = (h0 * spread).contiguous()
-    P = cuda_ns.ns_cold_start(J, h, **eig)
-    for _ in range(3):
-        *P, rho_in = cuda_ns.ns_fused_step_twin(J, *P, h, *eig.values())
-    P = tuple(p.contiguous() for p in P)
+    h, P = ns_operands(torch, cuda_ns, eig, J, h0)
     ws = cuda_ns.Workspace(Bn, n, dev)
 
     got = cuda_ns.ns_fused_step(J, *P, h, **eig, workspace=ws)
@@ -513,17 +523,13 @@ def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
                                      h.to(f64), *eig.values())
     torch.cuda.synchronize()
 
-    def scaled(x, y):
-        return float(((x.double() - y.double()).abs()
-                      / (1.0 + y.double().abs())).max())
-
     names = ("Pr", "Pcr", "Pci", "rho")
-    err_tw = max(scaled(g, t) for g, t in zip(got[:3], want[:3]))
+    err_tw = max(ns_scaled(g, t) for g, t in zip(got[:3], want[:3]))
     abs_tw = max(float((g - t).abs().max()) for g, t in zip(got, want))
     rho_rel = float(((got[3] - want[3]).abs()
                      / want[3].abs().clamp(min=1e-3)).max())
-    err_k = max(scaled(g, r) for g, r in zip(got, ref))
-    err_p = max(scaled(t, r) for t, r in zip(want, ref))
+    err_k = max(ns_scaled(g, r) for g, r in zip(got, ref))
+    err_p = max(ns_scaled(t, r) for t, r in zip(want, ref))
     say(f"ns_fused_step: input rho max {float(want[3].max()):.3e} min "
         f"{float(want[3].min()):.3e} over h0 x 1...100")
     say(f"ns_fused_step: |got - want| / (1 + |want|) {err_tw:.3e} (bar "
@@ -571,7 +577,7 @@ def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
         Ps = cuda_ns.ns_cold_start(Js, hs, **eig)
         g_s = cuda_ns.ns_fused_step(Js, *Ps, hs, **eig)
         w_s = cuda_ns.ns_fused_step_twin(Js, *Ps, hs, *eig.values())
-        e_s = max(scaled(a, b) for a, b in zip(g_s, w_s))
+        e_s = max(ns_scaled(a, b) for a, b in zip(g_s, w_s))
         say(f"ns_fused_step: n = {ns}, B = {Bs}: {e_s:.3e} (bar 2e-5)")
         check(e_s <= 2e-5, f"ns_fused_step at n = {ns} differs by {e_s}")
 
@@ -585,47 +591,120 @@ def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
         check(False, "ns_fused_step did not refuse n = 200")
     del big
 
-    def three_bmm():
-        """The concatenated torch.bmm formulation of the same step
-        (rmt_tpu/solvers/stiff_ensemble.py, the path without the kernel):
-        J [Pr|Pcr|Pci], Pcr [MPc_r|MPc_i], Pci [MPc_r|MPc_i] and Pr MPr."""
-        Pr, Pcr, Pci = P
-        hh = h[:, None, None]
-        JP = torch.bmm(J, torch.cat([Pr, Pcr, Pci], dim=-1))
-        MPr = Pr - (eig["gamma"] * hh) * JP[..., :n]
-        MPc_r = Pcr - hh * (eig["mu_r"] * JP[..., n:2 * n]
-                            - eig["mu_i"] * JP[..., 2 * n:])
-        MPc_i = Pci - hh * (eig["mu_r"] * JP[..., 2 * n:]
-                            + eig["mu_i"] * JP[..., n:2 * n])
-        eye = torch.eye(n, device=dev)
-        res_r = torch.sqrt(torch.mean((eye - MPr) ** 2, dim=(-1, -2)) * n)
-        res_c = torch.sqrt((torch.mean((eye - MPc_r) ** 2, dim=(-1, -2))
-                            + torch.mean(MPc_i ** 2, dim=(-1, -2))) * n)
-        Mc = torch.cat([MPc_r, MPc_i], dim=-1)
-        Ar, Ai = torch.bmm(Pcr, Mc), torch.bmm(Pci, Mc)
-        return (2 * Pr - torch.bmm(Pr, MPr),
-                2 * Pcr - (Ar[..., :n] - Ai[..., n:]),
-                2 * Pci - (Ai[..., :n] + Ar[..., n:]),
-                torch.maximum(res_r, res_c))
+    return {"ns_fused_step": ns_times(torch, cuda_ns, eig, J, P, h, want,
+                                      ws, abs_tw, host_calls=5)}
 
-    lib = three_bmm()
-    e_lib = max(scaled(a, b) for a, b in zip(lib, want))
+
+def ns_eig(tableau):
+    """The Radau eigenvalues ns_fused_step takes (gamma, mu_r, mu_i)."""
+    w = tableau[4]
+    return dict(gamma=float(w[0].real), mu_r=float(w[1].real),
+                mu_i=float(w[1].imag))
+
+
+def ns_operands(torch, cuda_ns, eig, J, h0):
+    """(h, P) for ns_fused_step at J: h the integrator's first steps h0
+    times a spread of 1 ... 100, P the cold seed after three twin
+    iterations (so the step contracts)."""
+    spread = torch.logspace(0.0, 2.0, J.shape[0], device=J.device,
+                            dtype=torch.float32)
+    h = (h0 * spread).contiguous()
+    P = cuda_ns.ns_cold_start(J, h, **eig)
+    for _ in range(3):
+        *P, _ = cuda_ns.ns_fused_step_twin(J, *P, h, *eig.values())
+    return h, tuple(p.contiguous() for p in P)
+
+
+def three_bmm(torch, eig, J, P, h):
+    """The concatenated torch.bmm formulation of ns_fused_step's step
+    (rmt_tpu/solvers/stiff_ensemble.py, the path without the kernel):
+    J [Pr|Pcr|Pci], Pcr [MPc_r|MPc_i], Pci [MPc_r|MPc_i] and Pr MPr."""
+    Pr, Pcr, Pci = P
+    n = J.shape[-1]
+    hh = h[:, None, None]
+    JP = torch.bmm(J, torch.cat([Pr, Pcr, Pci], dim=-1))
+    MPr = Pr - (eig["gamma"] * hh) * JP[..., :n]
+    MPc_r = Pcr - hh * (eig["mu_r"] * JP[..., n:2 * n]
+                        - eig["mu_i"] * JP[..., 2 * n:])
+    MPc_i = Pci - hh * (eig["mu_r"] * JP[..., 2 * n:]
+                        + eig["mu_i"] * JP[..., n:2 * n])
+    eye = torch.eye(n, device=J.device)
+    res_r = torch.sqrt(torch.mean((eye - MPr) ** 2, dim=(-1, -2)) * n)
+    res_c = torch.sqrt((torch.mean((eye - MPc_r) ** 2, dim=(-1, -2))
+                        + torch.mean(MPc_i ** 2, dim=(-1, -2))) * n)
+    Mc = torch.cat([MPc_r, MPc_i], dim=-1)
+    Ar, Ai = torch.bmm(Pcr, Mc), torch.bmm(Pci, Mc)
+    return (2 * Pr - torch.bmm(Pr, MPr),
+            2 * Pcr - (Ar[..., :n] - Ai[..., n:]),
+            2 * Pci - (Ai[..., :n] + Ar[..., n:]),
+            torch.maximum(res_r, res_c))
+
+
+def ns_scaled(x, y):
+    """max |x - y| / (1 + |y|), in float64."""
+    return float(((x.double() - y.double()).abs()
+                  / (1.0 + y.double().abs())).max())
+
+
+def ns_times(torch, cuda_ns, eig, J, P, h, want, ws, max_abs_err,
+             host_calls):
+    """ns_fused_step's times at (J, P, h) beside its twin, the three-bmm
+    formulation (first held to the twin's result ``want`` at 2e-5) and
+    its roofline bound."""
+    Bn, n, _ = J.shape
+    lib = three_bmm(torch, eig, J, P, h)
+    e_lib = max(ns_scaled(a, b) for a, b in zip(lib, want))
     check(e_lib <= 2e-5, f"the bmm formulation differs from the twin by "
-          f"{e_lib}")
+          f"{e_lib} at n = {n}")
     # bound: 8 products of 2 n^3 a member; 4 matrices in, 3 out
     ops = 16 * n ** 3 * Bn
     res = dict(
-        max_abs_err=abs_tw,
+        max_abs_err=max_abs_err,
         **kernel_times(torch, lambda: cuda_ns.ns_fused_step(
-            J, *P, h, **eig, workspace=ws), host_calls=5),
+            J, *P, h, **eig, workspace=ws), host_calls=host_calls),
         plain_ms=time_ms(torch, lambda: cuda_ns.ns_fused_step_twin(
             J, *P, h, *eig.values())),
-        library_ms=time_ms(torch, three_bmm),
+        library_ms=time_ms(torch, lambda: three_bmm(torch, eig, J, P, h)),
         **bound(4 * (7 * Bn * n * n + 2 * Bn), ops))
     say(f"ns_fused_step: {ops / res['ms'] * 1e-9:.2f} TFLOP/s, "
         f"{res['bound_ms'] / res['ms']:.3f} of its bound, at B = {Bn}, "
         f"n = {n} ({cuda_ns.geometry(n)})")
-    return {"ns_fused_step": res}
+    return res
+
+
+def ns_n1_phase(torch, cuda_ns, tableau, jacobians):
+    """ns_fused_step against its twin at the N1 shapes: for each (J, h0)
+    of ``jacobians`` (an N1 Jacobian (B, n, n) at the sweep's inlet and
+    the integrator's first steps (B,)), with ns_operands' h and P. The
+    first is also timed; returns its record."""
+    eig = ns_eig(tableau)
+    timed = None
+    for J, h0 in jacobians:
+        Bn, n, _ = J.shape
+        h, P = ns_operands(torch, cuda_ns, eig, J, h0)
+        ws = cuda_ns.Workspace(Bn, n, J.device)
+        got = cuda_ns.ns_fused_step(J, *P, h, **eig, workspace=ws)
+        want = cuda_ns.ns_fused_step_twin(J, *P, h, *eig.values())
+        torch.cuda.synchronize()
+        err = max(ns_scaled(g, t) for g, t in zip(got[:3], want[:3]))
+        abs_err = max(float((g - t).abs().max()) for g, t in zip(got, want))
+        rho_rel = float(((got[3] - want[3]).abs()
+                         / want[3].abs().clamp(min=1e-3)).max())
+        say(f"ns_fused_step: N1 shape n = {n}, B = {Bn}: input rho max "
+            f"{float(want[3].max()):.3e}; |got - want| / (1 + |want|) "
+            f"{err:.3e}, rho rel {rho_rel:.3e} (bar 2e-5), abs "
+            f"{abs_err:.3e}")
+        for g in got:
+            check(bool(torch.isfinite(g).all()),
+                  f"ns_fused_step at n = {n} is not finite")
+        check(err <= 2e-5, f"ns_fused_step at n = {n} differs by {err}")
+        check(rho_rel <= 2e-5,
+              f"ns_fused_step rho at n = {n} differs by {rho_rel}")
+        if timed is None:
+            timed = dict(B=Bn, n=n, **ns_times(
+                torch, cuda_ns, eig, J, P, h, want, ws, abs_err,
+                host_calls=50))
+    return timed
 
 
 def probe_layout(np, b, offsets):
@@ -683,10 +762,21 @@ def sweep_phase(torch, np, mi, run, counts, dev, *, name, chem, b, opts,
         return stats
 
     integrate("first run")
+    reset_counts(counts)
+    stats = integrate("timed run")
+    return check_launches(name, counts, kernels, stats, opts)
+
+
+def reset_counts(counts):
     for table in counts:
         for k in table:
             table[k] = 0
-    stats = integrate("timed run")
+
+
+def check_launches(name, counts, kernels, stats, opts):
+    """The kernel launch counts of the run just made (reset just before
+    it): every kernel of the path launched, no other; block_factor once
+    an attempt; ns_fused_step as the chunks, rescues and refreshes say."""
     launches = {k: v for table in counts for k, v in table.items()}
     for k, v in launches.items():
         say(f"{name}: launches {k} {v}")
@@ -714,6 +804,120 @@ def sweep_phase(torch, np, mi, run, counts, dev, *, name, chem, b, opts,
     return launches
 
 
+def start_n1_reference():
+    """A child process computing the N1 probes' float64 reference
+    (scripts/bench_torch_n1.scipy_reference, scipy on the CPU, one
+    thread) while the card works; it writes the array to its stdout in
+    .npy form."""
+    code = "\n".join((
+        f"import sys; sys.path[:0] = [{ROOT!r}, "
+        f"{os.path.join(ROOT, 'scripts')!r}]",
+        "import numpy as np, torch",
+        "torch.set_num_threads(1)",
+        "import bench_torch_n1 as b",
+        "from rmt_tpu_torch.cases.dme_case import make_model_input",
+        "np.save(sys.stdout.buffer, b.scipy_reference("
+        "make_model_input(model='N1'), b.PROBES))"))
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def n1_reference(np, proc):
+    """The child's reference (101, ACC_B, n), once it has finished."""
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, "the N1 reference child failed: "
+          + err.decode(errors="replace")[-2000:])
+    say(f"n1: scipy reference ready (waited {time.perf_counter() - t0:.1f} "
+        "s for the child)")
+    return np.load(io.BytesIO(out))
+
+
+def n1_jacobians(torch, bench_n1, dev, gamma):
+    """(J (B, n, n) float32, h0 (B,)) of the N1 sweep at its inlet, for
+    the non-iso-thermal (n = 8) and the iso-thermal (n = 7) process: the
+    integrator's default Jacobian and first step."""
+    from rmt_tpu_torch.cases.dme_case import make_model_input
+    from rmt_tpu_torch.solvers.stiff_ensemble import batched_jacobian
+
+    out = []
+    for process in ("non-iso-thermal", "iso-thermal"):
+        mi = make_model_input(model="N1", process_type=process)
+        f, _, y0, ts = bench_n1.build(mi, bench_n1.probe_layout(B)[0], dev,
+                                      torch.float32)
+        t0 = torch.zeros(B, device=dev)
+        J = batched_jacobian(f, t0, y0).contiguous()
+        j_norm = torch.amax(torch.sum(torch.abs(J), dim=-1), dim=-1)
+        out.append((J, torch.clamp(0.05 / (gamma * j_norm + 1e-30),
+                                   max=1e-3 * float(ts[-1] - ts[0]))))
+    return out
+
+
+def n1_phase(torch, np, bench_n1, counts, dev, ref):
+    """scripts/bench_torch_n1.py's N1 sweep at B members on the card, once,
+    with the kernel counts reset just before it."""
+    from rmt_tpu_torch.cases.dme_case import make_model_input
+
+    mi = make_model_input(model="N1")
+    offs, idx = bench_n1.probe_layout(B)
+    ns = dict(ns_refresh=5, ns_step=1)
+    reset_counts(counts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ys, stats = bench_n1.run(mi, offs, dev, **ns)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_seg = ys.shape[0] - 1
+    unfinished = int(torch.sum(stats.seg < n_seg))
+    att = (stats.n_accepted + stats.n_rejected).cpu().numpy()
+    rel = bench_n1.rel_err(ys[:, idx].double().cpu().numpy(), ref)
+    say(f"n1 sweep: B {B}, n {ys.shape[2]}, wall {wall:.3f} s (the process's "
+        f"first N1 run), members/s {B / wall:.3f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    say(f"n1 sweep: attempts mean {att.mean():.1f} max {int(att.max())}; "
+        f"unfinished {unfinished}; rejects conv {int(stats.n_rej_conv.sum())}"
+        f" err {int(stats.n_rej_err.sum())} rho "
+        f"{int(stats.n_rej_rho.sum())}; Jacobian refreshes "
+        f"{stats.n_jev - 1}, cold rescues {stats.n_rescue}")
+    say(f"n1 sweep: max_rel_err {rel.max():.4e} mean_rel_err "
+        f"{rel.mean():.4e} over {len(idx)} probes against scipy float64 "
+        f"(bar {bench_n1.BAR:g})")
+    check(tuple(ys.shape) == (ref.shape[0], B, ref.shape[2]),
+          f"n1 sweep: result shape {tuple(ys.shape)}")
+    check(unfinished == 0, f"n1 sweep: {unfinished}/{B} members exhausted "
+          "the budget")
+    check(bool(torch.isfinite(ys).all()), "n1 sweep: non-finite states")
+    check(rel.max() <= bench_n1.BAR,
+          f"n1 sweep: max_rel_err {rel.max()} > {bench_n1.BAR:g}")
+    return check_launches("n1 sweep", counts, N1_KERNELS, stats,
+                          dict(bench_n1.OPTS, **ns))
+
+
+def microbatch_phase(torch, np, mi, run, dev):
+    """run_n2_ensemble_lockstep(microbatch=MICROBATCH) at MICRO_B members
+    with the f32x options against separate calls of its slices: the same
+    states and per-member statistics, bit for bit, and the summed
+    counters."""
+    with np.load(os.path.join(ROOT, "bench_ref.npz")) as z:
+        t0 = float(z["dme_t_base"]) + np.linspace(-5.0, 5.0, MICRO_B)
+    ys, st = run(mi, {"T0": t0}, microbatch=MICROBATCH, device=dev, **F32X)
+    parts = [run(mi, {"T0": t0[lo:lo + MICROBATCH]}, device=dev, **F32X)
+             for lo in range(0, MICRO_B, MICROBATCH)]
+    same = torch.equal(ys, torch.cat([p[0] for p in parts], dim=1))
+    for name in ("n_accepted", "n_rejected", "seg", "n_rej_conv"):
+        same &= torch.equal(getattr(st, name),
+                            torch.cat([getattr(p[1], name) for p in parts]))
+    unfinished = int(torch.sum(st.seg < ys.shape[0] - 1))
+    say(f"microbatch: B {MICRO_B} in slices of {MICROBATCH}: equal to the "
+        f"separate calls {same}; unfinished {unfinished}; Jacobian "
+        f"refreshes {st.n_jev} (the slices' {[p[1].n_jev for p in parts]})")
+    check(same, "microbatch differs from separate calls of its slices")
+    check(st.n_jev == sum(p[1].n_jev for p in parts),
+          "microbatch did not sum the refresh counters")
+    check(unfinished == 0, f"microbatch: {unfinished} members unfinished")
+
+
 def main():
     import numpy as np
     import torch
@@ -721,7 +925,22 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on a card")
-    sys.path.insert(0, ROOT)
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
+    import bench_torch_n1 as bench_n1
+    import rmt_tpu_torch  # noqa: F401 (its import turns TF32 off: header)
+
+    dev = torch.device("cuda:0")
+    card = header(torch)
+    ref_proc = start_n1_reference()
+    try:
+        phases(torch, np, card, dev, bench_n1, ref_proc)
+    finally:
+        if ref_proc.poll() is None:
+            ref_proc.kill()
+        ref_proc.communicate()
+
+
+def phases(torch, np, card, dev, bench_n1, ref_proc):
     from torch.func import vmap
 
     from rmt_tpu_torch.cases import ch4_case, dme_case
@@ -731,9 +950,6 @@ def main():
                                         run_n2_ensemble_lockstep)
     from rmt_tpu_torch.parallel.ensemble import _cast
     from rmt_tpu_torch.solvers.stiff_ensemble import _transformed_tableau
-
-    dev = torch.device("cuda:0")
-    card = header(torch)
 
     mi = dme_case.make_model_input(model="N2")
     mi_ch4 = ch4_case.make_model_input(model="N2")
@@ -793,7 +1009,10 @@ def main():
                      max=1e-3 * float(ens.ts[-1] - ens.ts[0]))
     res.update(ns_phase(torch, np, cuda_ns, tableau, J, h0, dev))
     del J
-    for k, v in res.items():
+    res["ns_fused_step"]["n1_shape"] = ns_n1_phase(
+        torch, cuda_ns, tableau, n1_jacobians(torch, bench_n1, dev, gamma))
+    for k, v in (*res.items(),
+                 ("ns_fused_step (N1 shape)", res["ns_fused_step"]["n1_shape"])):
         lib = ("none" if v["library_ms"] is None
                else f"{v['library_ms']:.4f} ms")
         say(f"time {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} "
@@ -817,7 +1036,10 @@ def main():
             torch, np, mi_ch4, run_n2_ensemble_lockstep, counts, dev,
             name="ch4 guard", chem="ch4", b=b_ch4, opts=F32X, bar=1e-6,
             kernels=F32X_KERNELS),
+        "n1": n1_phase(torch, np, bench_n1, counts, dev,
+                       n1_reference(np, ref_proc)),
     }
+    microbatch_phase(torch, np, mi, run_n2_ensemble_lockstep, dev)
 
     sources = {
         "block_factor": ("rmt_tpu_torch/csrc/block.cu",
@@ -833,10 +1055,10 @@ def main():
         "ns_fused_step": ("rmt_tpu_torch/csrc/ns.cu",
                           "rmt_tpu/ops/pallas_ns.py:112"),
     }
-    # launches: the two DME legs' timed runs together (the main paths at
-    # full width); each path's own count rides along
+    # launches: the main paths' runs together (the two DME legs' timed
+    # runs and the N1 sweep); each path's own count rides along
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=by_path["f32x"][k] + by_path["f32"][k],
+                    launches=sum(by_path[p][k] for p in ("f32x", "f32", "n1")),
                     launches_by_path={p: v[k] for p, v in by_path.items()},
                     **res[k])
                for k, (src, rep) in sources.items()]

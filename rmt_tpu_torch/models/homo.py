@@ -1,9 +1,10 @@
-# Pseudo-homogeneous packed-bed reactor, dynamic model N2 (port of the N2
-# slice of rmt_tpu/models/homo.py), dimensionless formulation, as plain
-# functions on tensors.
+# Pseudo-homogeneous packed-bed reactor, steady model N1 and dynamic model
+# N2 (port of the N1 and N2 slices of rmt_tpu/models/homo.py),
+# dimensionless formulation, as plain functions on tensors.
 #
-# Same math as the reference's modelEquationN2 (PyREMOT/docs/
-# pbHomoReactor.py:3706-4134): the per-node python loop becomes tensor
+# Same math as the reference's modelEquationN1 (PyREMOT/docs/
+# pbHomoReactor.py:3017-3314; z is the integration variable) and
+# modelEquationN2 (:3706-4134): the per-node python loop becomes tensor
 # stencils, the explicit axial pressure march a closed-form affine
 # recurrence, and the user's kinetics DSL runs on all axial nodes at once.
 # Deliberate quirk-for-quirk reproductions are marked QUIRK with the
@@ -39,6 +40,8 @@ class HomoSpec:
     rates: RateProgram = field(hash=False, compare=False)
     z_no: int = 20          # N2 axial nodes
     t_no: int = 5           # N2 outer time intervals
+    times_no: int = 5       # N2 saved points per interval
+    z_out: int = 100        # N1 output points (zNo in solverSetting['N1'])
 
     @property
     def n_comp(self) -> int:
@@ -47,6 +50,10 @@ class HomoSpec:
     @property
     def comp_idx(self) -> np.ndarray:
         return DB.species_indices(self.comp_list)
+
+    @property
+    def var_no_n1(self) -> int:
+        return self.n_comp + (1 if self.iso_thermal else 2)
 
     @property
     def var_no_n2(self) -> int:
@@ -169,7 +176,7 @@ def _heat_exchange(Tm, T, U, a):
 
 def _reaction_energetics(spec: HomoSpec, T_real):
     """Heat of reaction at T [kJ/kmol] per reaction (rmtThermo.py:258-312).
-    T_real (zNo,) -> (zNo, n_rxn)."""
+    T_real scalar (N1) or (zNo,) (N2) -> (..., n_rxn)."""
     st = spec.stoich
     eq_cp_mean = thermo.cp_mean(T_real, st.eq_idx)      # (z, n_eq)
     eq_nu = torch.as_tensor(st.eq_nu, dtype=T_real.dtype,
@@ -178,6 +185,84 @@ def _reaction_energetics(spec: HomoSpec, T_real):
     return en_ch + torch.as_tensor(st.dh_rxn_25, dtype=T_real.dtype,
                                    device=T_real.device)
 
+
+# ---------------------------------------------------------------------------
+# N1: steady-state dimensionless model (z is the integration variable)
+# ---------------------------------------------------------------------------
+
+def n1_initial_state(spec: HomoSpec, p, d):
+    iv_c = p["SpCoi0"] / d["Cmax"]                     # pbHomoReactor.py:2833
+    iv = [iv_c, torch.ones_like(iv_c[:1])]             # P/Pf = 1
+    if not spec.iso_thermal:
+        iv.append(torch.zeros_like(iv_c[:1]))          # theta = (T-Tf)/Tf = 0
+    return torch.cat(iv)
+
+
+def make_n1_rhs(spec: HomoSpec):
+    """RHS of the steady model for one member: rhs(z, y (var_no_n1,), p,
+    d) (mirrors modelEquationN1, pbHomoReactor.py:3017-3314)."""
+    idx = spec.comp_idx
+    n_comp = spec.n_comp
+
+    def rhs(z, y, p, d):
+        nu_comp = torch.as_tensor(spec.stoich.nu_comp, dtype=y.dtype,
+                                  device=y.device)
+        co_spi = y[:n_comp]
+        P_dl = y[n_comp]
+        T_dl = y[n_comp + 1] if not spec.iso_thermal else y.new_zeros(())
+
+        co_spi_re = co_spi * d["Cmax"]
+        co_sp_re = torch.sum(co_spi_re)
+        T_re = T_dl * p["T0"] + p["T0"]
+        P_re = P_dl * p["P0"]
+        mo_fri = co_spi_re / co_sp_re
+
+        # velocity from EOS (rmtUtility.py:405-421)
+        in_ga_ve = d["InGaVe0"] * (co_sp_re / d["SpCo0"]) * (p["P0"] / P_re)
+        in_ga_ve_dl = in_ga_ve / d["InGaVe0"]
+        su_ga_ve = in_ga_ve * p["BeVoFr"]
+        su_ga_ve_dl = su_ga_ve / d["SuGaVe0"]
+
+        mi_mo_we = thermo.mixture_molecular_weight(mo_fri, d["mw"], "kg/mol")
+        ga_de_eos = thermo.density_ig_eos(P_re, T_re, mi_mo_we)
+        ga_de_dl = ga_de_eos / d["GaDe0"]
+
+        # Ergun momentum balance (pbHomoReactor.py:3214-3220)
+        eps = p["BeVoFr"]
+        erg_a = 150 * d["GaMiVi"] * su_ga_ve / p["PaDi"] ** 2
+        erg_b = (1 - eps) ** 2 / eps**3
+        erg_c = 1.75 * ga_de_eos * su_ga_ve**2 / p["PaDi"]
+        erg_d = (1 - eps) / eps**3
+        dxdt_p = -(erg_a * erg_b + erg_c * erg_d) / (p["P0"] / d["zf"])
+
+        # kinetics: DSL program -> reaction rates -> formation rates
+        r0 = spec.rates(T_re, P_re, mo_fri, co_spi_re,
+                        p["kinetic_overrides"]).to(y.dtype)    # (n_rxn,)
+        ri = r0 @ nu_comp                               # (n_comp,)
+
+        # energy balance pieces
+        cp_mean_i = thermo.cp_mean(T_re, idx)
+        cp_mix = thermo.cp_mix(mo_fri, cp_mean_i)
+        cp_mix_dl = cp_mix / d["GaCpMeanMix0"]
+        cp_mix_eff_dl = cp_mix_dl * eps
+        he_re_t = _reaction_energetics(spec, T_re)      # (n_rxn,)
+        ov_he_re_t = torch.dot(r0, he_re_t)
+        qm = _heat_exchange(p["Tm"], T_re, p["U"], d["aEff"])
+
+        dxdt_c = (1 / su_ga_ve_dl) * (ri / d["GaMaCoTe0"])
+        out = [dxdt_c, dxdt_p[None]]
+        if not spec.iso_thermal:
+            const_t1 = 1 / (ga_de_dl * cp_mix_eff_dl * in_ga_ve_dl)
+            dxdt_t = const_t1 * ((-ov_he_re_t + qm) / d["GaHeCoTe0"])
+            out.append(dxdt_t[None])
+        return torch.cat(out)
+
+    return rhs
+
+
+# ---------------------------------------------------------------------------
+# N2: dynamic dimensionless model (method of lines in z, time integration)
+# ---------------------------------------------------------------------------
 
 def n2_initial_state(spec: HomoSpec, p, d):
     c0 = (p["SpCoi0"] / d["Cmax"])[:, None] * torch.ones(

@@ -11,10 +11,11 @@
 # preconditioners kept warm by the fused kernel of ops/cuda_ns.py, from
 # the dense colored Jacobian, or (exact_solve=True) exactly by the block
 # kernels of ops/cuda_block.py, from Jacobian blocks gathered by colored
-# JVPs.
+# JVPs. microbatch=K bounds the live state: a host loop integrates the
+# sweep K members at a time and joins the slices.
 #
-# Left for later ports: accurate_rates=True/"full", batched_rhs,
-# microbatch and mesh sharding.
+# Left for later ports: accurate_rates=True/"full", batched_rhs and mesh
+# sharding.
 
 from __future__ import annotations
 
@@ -134,6 +135,7 @@ def run_n2_ensemble_lockstep(
     exact_solve: bool = False,
     accurate_rates: bool | str = False,
     cheap_sweeps: int = 0,
+    microbatch: int | None = None,
     device=None,
     **solver_kwargs,
 ):
@@ -156,6 +158,14 @@ def run_n2_ensemble_lockstep(
     ``device``: the CUDA card unless the caller names another (pass
     device="cpu" for the CPU; with no card and no device= it raises).
 
+    microbatch=K (K < B, B a multiple of K): the sweep's members are
+    integrated K at a time, one call of the single-batch path for each
+    slice in order, and the slices are joined along the member axis: ys
+    concatenated, the per-member statistics concatenated and the scalar
+    counters (n_jev, n_rescue) summed. Each member's result is the one a
+    separate call on its slice gives. Not with out_members (its indices
+    are global, the slices local). K >= B is the single call.
+
     Returns (ys, stats) with ys (tNo+1, B, varNo*zNo) dimensionless
     states; with out_members=<int index array> (forwarded to
     stiff_ensemble.odeint_ensemble) the return is (ys_sel, y_final,
@@ -168,6 +178,15 @@ def run_n2_ensemble_lockstep(
         raise ValueError(
             "cheap_sweeps only makes sense with an accurate_rates mode "
             "(the plain RHS IS the cheap one otherwise)")
+    if microbatch is not None:
+        b_total = len(next(iter(sweep.values()))) if sweep else 0
+        if b_total > microbatch:
+            return _run_microbatches(
+                model_input, sweep, b_total, int(microbatch),
+                dict(rtol=rtol, atol=atol, exact_solve=exact_solve,
+                     accurate_rates=accurate_rates,
+                     cheap_sweeps=cheap_sweeps, device=device,
+                     **solver_kwargs))
     df32_mode = accurate_rates == "df32"
     e = prepare_n2_ensemble(model_input, sweep, device)
     spec, p32, axes, dB, y0B = e.spec, e.params, e.axes, e.d, e.y0
@@ -215,3 +234,28 @@ def run_n2_ensemble_lockstep(
         kw["jac"] = jac
     return stiff_ensemble.odeint_ensemble(
         batched(rhs), y0B, e.ts, rtol=rtol, atol=atol, **kw)
+
+
+def _run_microbatches(model_input, sweep, b_total, k, kw):
+    """run_n2_ensemble_lockstep over member slices of k, joined (port of
+    the reference's microbatch scan, rmt_tpu/parallel/ensemble.py)."""
+    if "out_members" in kw:
+        raise ValueError(
+            "out_members and microbatch are mutually exclusive (probe "
+            "indices are global, microbatches are local)")
+    if k <= 0 or b_total % k:
+        raise ValueError(
+            f"ensemble size {b_total} must be a multiple of microbatch {k}")
+
+    def rows(v, lo):
+        v = v if isinstance(v, torch.Tensor) else np.asarray(v)
+        return v[lo:lo + k]
+
+    parts = [run_n2_ensemble_lockstep(
+        model_input, {name: rows(v, lo) for name, v in sweep.items()}, **kw)
+        for lo in range(0, b_total, k)]
+    ys = torch.cat([p[0] for p in parts], dim=1)
+    stats = stiff_ensemble.EnsembleStats(*[
+        torch.cat(vals) if isinstance(vals[0], torch.Tensor) else sum(vals)
+        for vals in zip(*(p[1] for p in parts))])
+    return ys, stats

@@ -1,5 +1,5 @@
 # Thermodynamic property functions on tensors (port of
-# rmt_tpu/props/thermo.py, the parts the N2 model reads).
+# rmt_tpu/props/thermo.py, the parts the N1 and N2 models read).
 #
 # Coefficient tables are numpy float64 (data/species.py); each function
 # casts them to the dtype and device of its temperature argument, so an
@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import Tref
+from ..constants import R_CONST, Tref
 from ..data import species as DB
 
 
@@ -42,6 +42,11 @@ def cp_mix(mole_frac, cp_i):
 def density_ig(mw_mix, conc_total):
     """Ideal-gas density [kg/m^3] = MW [kg/mol] * total concentration."""
     return mw_mix * conc_total
+
+
+def density_ig_eos(P, T, mw_mix):
+    """Ideal-gas density from the EOS [kg/m^3]."""
+    return P / ((R_CONST / mw_mix) * T)
 
 
 def mixture_molecular_weight(mole_frac, mw, unit: str = "g/mol"):

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of the port's N2 DME sweeps goes, on one CUDA card.
+"""Where the time of the port's lockstep sweeps goes, on one CUDA card.
 
-    python3 scripts/torch_lockstep_profile.py [--leg f32x|f32]
+    python3 scripts/torch_lockstep_profile.py [--leg f32x|f32|n1] [--b B]
 
-Runs one of chip_smoke.py's sweeps at its B = 4096 (bench.py's f32x leg,
-the default, or its f32 leg, through
-rmt_tpu_torch.parallel.run_n2_ensemble_lockstep) and prints:
+Runs one of chip_smoke.py's sweeps at B members (default its 4096):
+bench.py's f32x leg (the default) or its f32 leg, through
+rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, or the N1 sweep of
+scripts/bench_torch_n1.py (dense output, the default Jacobian), and
+prints:
   - the wall of a first run (CUDA set-up and kernel builds) and of two
     warm runs, with the integrator's attempts and Jacobian refreshes, and
     the second warm run's kernel launch counts and peak device memory;
   - a warm run with the Jacobian evaluation (the blocks for f32x, the
-    dense matrix for f32) timed on its own (the card synchronised around
-    each call);
+    dense matrix for f32 and n1) timed on its own (the card synchronised
+    around each call);
   - a torch.profiler window of two chunks (16 attempts, two refreshes):
     its wall, the device time of every kernel in it, the busy share and
     the number of kernel launches, then the kernels by device time, and
@@ -29,8 +31,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--leg", choices=("f32x", "f32"), default="f32x")
-    leg = ap.parse_args().leg
+    ap.add_argument("--leg", choices=("f32x", "f32", "n1"), default="f32x")
+    ap.add_argument("--b", type=int, default=None,
+                    help="members (default: chip_smoke.py's B)")
+    args = ap.parse_args()
+    leg = args.leg
 
     import numpy as np
     import torch
@@ -38,7 +43,8 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_lockstep_profile: no CUDA device")
-    sys.path.insert(0, ROOT)
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
+    import bench_torch_n1
     import chip_smoke
     from rmt_tpu_torch.cases.dme_case import make_model_input
     from rmt_tpu_torch.ops import _build, cuda_block, cuda_ns, cuda_rhs
@@ -47,19 +53,29 @@ def main():
 
     dev = torch.device("cuda:0")
     card = chip_smoke.header(torch)
-    B = chip_smoke.B
-    mi = make_model_input(model="N2")
-    sweep = {"T0": 523.0 + np.linspace(-5.0, 5.0, B)}
-    opts = chip_smoke.F32X if leg == "f32x" else chip_smoke.F32
+    B = args.b or chip_smoke.B
+    if leg == "n1":
+        mi = make_model_input(model="N1")
+        offs = bench_torch_n1.probe_layout(B)[0]
+        opts = bench_torch_n1.OPTS
+    else:
+        mi = make_model_input(model="N2")
+        sweep = {"T0": 523.0 + np.linspace(-5.0, 5.0, B)}
+        opts = chip_smoke.F32X if leg == "f32x" else chip_smoke.F32
     jac_arg = "jac_blocks" if leg == "f32x" else "jac"
     counts = (cuda_block.LAUNCHES, cuda_rhs.LAUNCHES, cuda_ns.LAUNCHES)
+
+    def integrate(**over):
+        if leg == "n1":
+            return bench_torch_n1.run(mi, offs, dev, **over)
+        return run_n2_ensemble_lockstep(mi, sweep, device=dev,
+                                        **dict(opts, **over))
 
     def run(label, **over):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        _, stats = run_n2_ensemble_lockstep(
-            mi, sweep, device=dev, **dict(opts, **over))
+        _, stats = integrate(**over)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         att = (stats.n_accepted + stats.n_rejected).cpu().numpy()
@@ -81,28 +97,34 @@ def main():
         f"{k} {v}" for table in counts for k, v in table.items()), flush=True)
 
     # the Jacobian evaluation alone: wrap the callable the entry point
-    # hands to the integrator
+    # hands to the integrator (n1: the integrator's default Jacobian)
     odeint = stiff_ensemble.odeint_ensemble
+    default_jac = stiff_ensemble.batched_jacobian
     spent = {"s": 0.0, "n": 0}
 
-    def timed_odeint(f, y0, ts, **kw):
-        jac = kw.pop(jac_arg)
-
-        def jac_timed(t, y):
+    def timed(jac):
+        def jac_timed(*a):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = jac(t, y)
+            out = jac(*a)
             torch.cuda.synchronize()
             spent["s"] += time.perf_counter() - t0
             spent["n"] += 1
             return out
-        return odeint(f, y0, ts, **{jac_arg: jac_timed}, **kw)
+        return jac_timed
 
-    stiff_ensemble.odeint_ensemble = timed_odeint
+    def timed_odeint(f, y0, ts, **kw):
+        return odeint(f, y0, ts, **{jac_arg: timed(kw.pop(jac_arg))}, **kw)
+
+    if leg == "n1":
+        stiff_ensemble.batched_jacobian = timed(default_jac)
+    else:
+        stiff_ensemble.odeint_ensemble = timed_odeint
     try:
         wall = run("split run")
     finally:
         stiff_ensemble.odeint_ensemble = odeint
+        stiff_ensemble.batched_jacobian = default_jac
     print(f"split run: {jac_arg} {spent['s']:.3f} s of {wall:.3f} s over "
           f"{spent['n']} calls ({spent['s'] / spent['n'] * 1e3:.1f} ms "
           f"each)", flush=True)

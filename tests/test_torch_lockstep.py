@@ -131,8 +131,9 @@ def test_odeint_ensemble_matches_jax_block_mode():
 
 
 def test_unported_options_raise():
-    """Newton-Schulz mode (no exact_solve) is ported and no longer
-    raises; what is still left for later ports does."""
+    """Newton-Schulz mode (no exact_solve), microbatch and dense_output
+    are ported and no longer raise; what is still left for later ports
+    (mesh, batched_rhs) does."""
     mi = t_input(model="N2", op_period=0.002)
     sweep = {"T0": T0}
     ys, st = t_run(mi, sweep, device="cpu", max_steps=8, j_every=8)
@@ -149,10 +150,13 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="shared period"):
         t_run(mi, {"opT": np.array([0.5, 0.6])}, device="cpu",
               exact_solve=True)
-    for later in ("microbatch", "mesh", "batched_rhs", "dense_output"):
+    for later in ("mesh", "batched_rhs"):
         with pytest.raises(TypeError, match=later):
             t_run(mi, sweep, device="cpu", exact_solve=True,
                   **{later: True})
+    ys, st = t_run(mi, sweep, device="cpu", max_steps=8, j_every=8,
+                   microbatch=1, dense_output=True)
+    assert tuple(ys.shape) == (6, 2, 140) and st.n_jev >= 4
 
 
 def test_ch4_f32x_sweep_matches_reference_probes():

@@ -206,9 +206,13 @@ def test_ns_mode_rescues_a_diverged_preconditioner():
 
 
 def test_mode_arguments_are_checked():
+    """Block mode needs its blocks, and blocks that tile the state; in
+    Newton-Schulz mode a missing jac is the default dense Jacobian of f
+    (tests/test_torch_dense_output.py holds it), not an error."""
     A, y0, ts = _stiff_linear()
     f = lambda t, y: y
-    with pytest.raises(ValueError, match="dense jac"):
-        t_se.odeint_ensemble(f, torch.as_tensor(y0), ts)
     with pytest.raises(ValueError, match="jac_blocks"):
         t_se.odeint_ensemble(f, torch.as_tensor(y0), ts, block=(3, 4))
+    with pytest.raises(ValueError, match="does not tile"):
+        t_se.odeint_ensemble(f, torch.as_tensor(y0), ts, block=(5, 3),
+                             jac_blocks=lambda t, y: None)
