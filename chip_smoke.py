@@ -57,7 +57,20 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      by a child process that starts with the script, and ns_fused_step
      must launch as often as the chunks, refreshes and rescues say;
   7. microbatch: the f32x options at B = 512 with microbatch=256 equal,
-     member by member and bit for bit, two separate calls of 256.
+     member by member and bit for bit, two separate calls of 256;
+  8. seq, the sequential float64 path (rmt_tpu_torch.solvers.radau,
+     dopri5, fixed; scripts/bench_torch_seq.py's checks), which launches
+     none of the kernels (counts reset just before it, all 0 after it):
+     rmtExe N2 (DME, solver defaults) at the first probe temperature of
+     bench_ref.npz, its states rebuilt from dataPack and checkpoint and
+     held to that probe at 1e-6; rmtExe N1 at 518 K held to the child's
+     scipy reference at 1e-5; run_n2_ensemble over the 64 DME probes held
+     to bench_ref.npz at 1e-6 with every member's n_unreached 0, and
+     probe 0 alone (B = 1) held to its B = 64 row at 1e-10; Dopri5, RK4,
+     AB3 and PreCorr3 on Lotka-Volterra with per-member parameters at
+     B = 4096 held to the same calls on the CPU at 1e-12, Dopri5 on
+     exponential decay held to exp at 1e-7, and rmtExe N1 with ivp "AM"
+     must raise (the fixed stepper diverges, as in rmt_tpu).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -101,6 +114,8 @@ F32_KERNELS = ("ns_fused_step", "n2_rhs_plain")
 N1_KERNELS = ("ns_fused_step",)
 # the microbatch check: MICRO_B members in slices of MICROBATCH
 MICRO_B, MICROBATCH = 512, 256
+# the seq phase: explicit steppers at SEQ_B members, STEPS fixed steps
+SEQ_B, STEPS = 4096, 200
 
 
 def say(*args):
@@ -918,7 +933,126 @@ def microbatch_phase(torch, np, mi, run, dev):
     check(unfinished == 0, f"microbatch: {unfinished} members unfinished")
 
 
+def lotka_volterra(torch, np, device):
+    """f(t, z (B, 2)) and z0 of SEQ_B Lotka-Volterra systems (numpy seed
+    SEED) with per-member parameters, on device, in float64."""
+    rng = np.random.default_rng(SEED)
+    lam = torch.as_tensor(rng.uniform([1.2, 0.8, 2.5, 0.7],
+                                      [1.8, 1.2, 3.5, 1.3], (SEQ_B, 4)),
+                          device=device)
+    z0 = torch.as_tensor(rng.uniform([5.0, 3.0], [12.0, 7.0], (SEQ_B, 2)),
+                         device=device)
+    a, b, c, d = lam.unbind(1)
+
+    def f(t, z):
+        x, y = z[:, 0], z[:, 1]
+        return torch.stack([a * x - b * x * y, -c * y + d * x * y], dim=1)
+
+    return f, z0
+
+
+def steppers(torch, np, device):
+    """The explicit steppers on lotka_volterra: Dopri5 (rtol 1e-9, atol
+    1e-12, 11 output times over [0, 5]) and RK4, AB3, PreCorr3 (STEPS
+    steps over [0, 5]); {name: (ys, stats or None)}."""
+    from rmt_tpu_torch.solvers import dopri5, fixed
+
+    f, z0 = lotka_volterra(torch, np, device)
+    ts = torch.linspace(0.0, 5.0, 11, dtype=torch.float64, device=device)
+    out = {"dopri5": dopri5.odeint_batched(f, z0, ts, rtol=1e-9, atol=1e-12)}
+    for name in ("rk4", "adams_bashforth3", "precorr3"):
+        out[name] = (getattr(fixed, name)(f, 0.0, 5.0, STEPS, z0), None)
+    return out
+
+
+def seq_phase(torch, np, bench_seq, counts, dev, ref_n1):
+    """The sequential float64 path on the card (see the module docstring,
+    phase 8): every check exits nonzero; no kernel may launch."""
+    from rmt_tpu_torch import rmtExe
+    from rmt_tpu_torch.cases.dme_case import make_model_input
+    from rmt_tpu_torch.parallel import run_n2_ensemble
+    from rmt_tpu_torch.solvers import dopri5
+
+    reset_counts(counts)
+    t_phase = time.perf_counter()
+    for part in (bench_seq.rmtexe_n2(torch, dev, warm=False),
+                 bench_seq.rmtexe_n1(torch, dev, ref_n1[:, bench_seq.N1_PROBE],
+                                     warm=False)):
+        say(f"seq: {part['part']} at T0 {part['T0']:.4f} K, n {part['n']}: "
+            f"wall {part['first_s']:.3f} s (the process's first call), "
+            f"attempts {part['attempts']}, stats {part['stats']}, "
+            f"max_rel_err {part['max_rel_err']:.4e} (bar {part['bar']:g})")
+        check(part["finite"] and part["ok"],
+              f"seq: {part['part']} failed its check: {part}")
+
+    t0 = time.perf_counter()
+    offsets, ref_ys, t_base = bench_seq.dme_probes()
+    mi = make_model_input(model="N2")
+    ys, st = run_n2_ensemble(mi, {"T0": t_base + offsets}, device=dev,
+                             return_stats=True)
+    wall = time.perf_counter() - t0
+    rel = bench_seq.rel_err(ys.transpose(0, 1).cpu().numpy(), ref_ys)
+    att = (st.n_accepted + st.n_rejected).cpu().numpy()
+    say(f"seq: run_n2_ensemble B {len(offsets)}: wall {wall:.3f} s, "
+        f"attempts mean {att.mean():.1f} max {int(att.max())}, n_unreached "
+        f"{int(st.n_unreached.sum())}, max_rel_err {rel.max():.4e} "
+        f"mean_rel_err {rel.mean():.4e} (bar {bench_seq.BAR_REF:g})")
+    check(bool(torch.isfinite(ys).all()), "seq: non-finite ensemble states")
+    check(int(st.n_unreached.max()) == 0, "seq: a member missed an output "
+          f"time: {st.n_unreached.tolist()}")
+    check(rel.max() <= bench_seq.BAR_REF,
+          f"seq: run_n2_ensemble max_rel_err {rel.max()}")
+    t0 = time.perf_counter()
+    y1, _ = run_n2_ensemble(mi, {"T0": t_base + offsets[:1]}, device=dev)
+    d1 = bench_seq.rel_err(y1[0].cpu().numpy(), ys[0].cpu().numpy()).max()
+    say(f"seq: probe 0 alone (B = 1, wall {time.perf_counter() - t0:.3f} s) "
+        f"against its B = {len(offsets)} row: max relative difference "
+        f"{d1:.4e} (bar 1e-10)")
+    check(d1 <= 1e-10, f"seq: probe 0 alone differs by {d1}")
+
+    t0 = time.perf_counter()
+    card_runs = steppers(torch, np, dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    cpu_runs = steppers(torch, np, torch.device("cpu"))
+    for name, (ys_c, st_c) in card_runs.items():
+        ys_h, st_h = cpu_runs[name]
+        e = bench_seq.rel_err(ys_c.cpu().numpy(), ys_h.numpy()).max()
+        same = st_c is None or all(
+            torch.equal(v.cpu(), getattr(st_h, k))
+            for k, v in st_c._asdict().items())
+        say(f"seq: {name} B {SEQ_B} on the card against the CPU: max "
+            f"relative difference {e:.4e} (bar 1e-12), same statistics "
+            f"{same}" + ("" if st_c is None else
+                         f", accepted max {int(st_c.n_accepted.max())}"))
+        check(e <= 1e-12 and same, f"seq: {name} card and CPU differ by {e}")
+    rng = np.random.default_rng(SEED)
+    k = torch.as_tensor(rng.uniform(0.5, 3.0, SEQ_B), device=dev)
+    ts = torch.linspace(0.0, 2.0, 11, dtype=torch.float64, device=dev)
+    yd, _ = dopri5.odeint_batched(
+        lambda t, y: -k[:, None] * y,
+        torch.ones((SEQ_B, 2), dtype=torch.float64, device=dev), ts,
+        rtol=1e-9, atol=1e-12)
+    exact = torch.exp(-k[:, None] * ts[None, :])[..., None].expand_as(yd)
+    e_exp = float(((yd - exact).abs() / exact).max())
+    say(f"seq: explicit steppers on the card {t_card:.3f} s; dopri5 decay "
+        f"against exp: max relative error {e_exp:.4e} (bar 1e-7)")
+    check(e_exp <= 1e-7, f"seq: dopri5 decay off exp by {e_exp}")
+    try:
+        rmtExe(make_model_input(model="N1", ivp="AM"), device=dev)
+    except RuntimeError as e:
+        say(f"seq: rmtExe N1 ivp 'AM' raised as rmt_tpu does: {e}")
+    else:
+        check(False, "seq: rmtExe N1 with ivp 'AM' did not raise")
+    launches = {k: v for table in counts for k, v in table.items()}
+    say(f"seq: kernel launches {launches} (the sequential path runs none)")
+    check(not any(launches.values()),
+          f"seq: a kernel launched on the sequential path: {launches}")
+    say(f"seq: phase wall {time.perf_counter() - t_phase:.3f} s")
+
+
 def main():
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -927,20 +1061,21 @@ def main():
                          "on a card")
     sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
     import bench_torch_n1 as bench_n1
+    import bench_torch_seq as bench_seq
     import rmt_tpu_torch  # noqa: F401 (its import turns TF32 off: header)
 
     dev = torch.device("cuda:0")
     card = header(torch)
     ref_proc = start_n1_reference()
     try:
-        phases(torch, np, card, dev, bench_n1, ref_proc)
+        phases(torch, np, card, dev, bench_n1, bench_seq, ref_proc, t_start)
     finally:
         if ref_proc.poll() is None:
             ref_proc.kill()
         ref_proc.communicate()
 
 
-def phases(torch, np, card, dev, bench_n1, ref_proc):
+def phases(torch, np, card, dev, bench_n1, bench_seq, ref_proc, t_start):
     from torch.func import vmap
 
     from rmt_tpu_torch.cases import ch4_case, dme_case
@@ -1022,24 +1157,38 @@ def phases(torch, np, card, dev, bench_n1, ref_proc):
             f"{v['card_ms']:.4f} ms; the wrapper's host time "
             f"{v['host_ms']:.4f} ms a call; on {card}")
 
+    walls = {"header, build and kernels": time.perf_counter() - t_start}
+
+    def phase(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[label] = time.perf_counter() - t0
+        say(f"phase wall: {label} {walls[label]:.1f} s")
+        return out
+
     counts = (cuda_block.LAUNCHES, cuda_rhs.LAUNCHES, cuda_ns.LAUNCHES)
     by_path = {
-        "f32x": sweep_phase(
-            torch, np, mi, run_n2_ensemble_lockstep, counts, dev,
-            name="f32x sweep", chem="dme", b=B, opts=F32X, bar=1e-6,
-            kernels=F32X_KERNELS),
-        "f32": sweep_phase(
-            torch, np, mi, run_n2_ensemble_lockstep, counts, dev,
-            name="f32 sweep", chem="dme", b=B, opts=F32, bar=5e-5,
-            kernels=F32_KERNELS),
-        "ch4_f32x": sweep_phase(
-            torch, np, mi_ch4, run_n2_ensemble_lockstep, counts, dev,
-            name="ch4 guard", chem="ch4", b=b_ch4, opts=F32X, bar=1e-6,
-            kernels=F32X_KERNELS),
-        "n1": n1_phase(torch, np, bench_n1, counts, dev,
-                       n1_reference(np, ref_proc)),
+        "f32x": phase(
+            "f32x sweep", sweep_phase, torch, np, mi,
+            run_n2_ensemble_lockstep, counts, dev, name="f32x sweep",
+            chem="dme", b=B, opts=F32X, bar=1e-6, kernels=F32X_KERNELS),
+        "f32": phase(
+            "f32 sweep", sweep_phase, torch, np, mi,
+            run_n2_ensemble_lockstep, counts, dev, name="f32 sweep",
+            chem="dme", b=B, opts=F32, bar=5e-5, kernels=F32_KERNELS),
+        "ch4_f32x": phase(
+            "ch4 guard", sweep_phase, torch, np, mi_ch4,
+            run_n2_ensemble_lockstep, counts, dev, name="ch4 guard",
+            chem="ch4", b=b_ch4, opts=F32X, bar=1e-6, kernels=F32X_KERNELS),
     }
-    microbatch_phase(torch, np, mi, run_n2_ensemble_lockstep, dev)
+    ref_n1 = n1_reference(np, ref_proc)
+    by_path["n1"] = phase("n1 sweep", n1_phase, torch, np, bench_n1, counts,
+                          dev, ref_n1)
+    phase("microbatch", microbatch_phase, torch, np, mi,
+          run_n2_ensemble_lockstep, dev)
+    phase("seq", seq_phase, torch, np, bench_seq, counts, dev, ref_n1)
+    say("phase walls (s): " + json.dumps(
+        {k: round(v, 1) for k, v in walls.items()}))
 
     sources = {
         "block_factor": ("rmt_tpu_torch/csrc/block.cu",

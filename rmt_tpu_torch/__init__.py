@@ -9,5 +9,7 @@ from . import config as _config
 
 _config.setup()
 
+from .api.rmt import rmtExe, rmtCom  # noqa: E402
+
 __version__ = "0.1.0"
-__all__ = ["__version__"]
+__all__ = ["rmtExe", "rmtCom", "__version__"]

@@ -1,1 +1,3 @@
-from .ensemble import batch_params, prepare_n2_ensemble, run_n2_ensemble_lockstep
+from .ensemble import (batch_params, make_n1_ensemble, make_n2_ensemble,
+                       prepare_n2_ensemble, run_n2_ensemble,
+                       run_n2_ensemble_lockstep)

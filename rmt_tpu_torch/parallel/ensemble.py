@@ -1,21 +1,30 @@
-# Ensemble execution of the N2 dynamic model on the lockstep integrator
-# (port of run_n2_ensemble_lockstep and batch_params from
-# rmt_tpu/parallel/ensemble.py).
+# Ensemble execution of the homogeneous models (port of the N1/N2 slice
+# of rmt_tpu/parallel/ensemble.py).
 #
 # A batch of reactors -- any leaf of the parameter dict may be swept:
 # inlet T/P/composition, geometry, heat exchange, and the kinetic
 # constants through kinetic overrides -- integrates as one ensemble on one
-# device. Stage residuals go through the fused N2 RHS (ops/cuda_rhs.py:
-# the generated CUDA kernel for tensors on the card, its plain twin on
-# the CPU). The stage systems are solved either by Newton-Schulz
-# preconditioners kept warm by the fused kernel of ops/cuda_ns.py, from
-# the dense colored Jacobian, or (exact_solve=True) exactly by the block
-# kernels of ops/cuda_block.py, from Jacobian blocks gathered by colored
-# JVPs. microbatch=K bounds the live state: a host loop integrates the
-# sweep K members at a time and joins the slices.
+# device. Two integrators:
 #
-# Left for later ports: accurate_rates=True/"full", batched_rhs and mesh
-# sharding.
+#   * run_n2_ensemble / make_n2_ensemble / make_n1_ensemble: the
+#     reference's jax.vmap of the sequential radau.odeint (or
+#     dopri5.odeint), here the member-batched loop of
+#     solvers/radau.py::odeint_batched (dopri5.odeint_batched), which
+#     gives every member the result it gets alone. float64 by default
+#     (config.default_float()).
+#   * run_n2_ensemble_lockstep: the lockstep integrator in float32. Stage
+#     residuals go through the fused N2 RHS (ops/cuda_rhs.py: the
+#     generated CUDA kernel for tensors on the card, its plain twin on
+#     the CPU). The stage systems are solved either by Newton-Schulz
+#     preconditioners kept warm by the fused kernel of ops/cuda_ns.py,
+#     from the dense colored Jacobian, or (exact_solve=True) exactly by
+#     the block kernels of ops/cuda_block.py, from Jacobian blocks
+#     gathered by colored JVPs. microbatch=K bounds the live state: a
+#     host loop integrates the sweep K members at a time and joins the
+#     slices.
+#
+# Left for later ports: mesh sharding (make_mesh, shard_batch; mesh=
+# raises), accurate_rates=True/"full" and batched_rhs.
 
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ from torch.func import vmap
 from .. import config
 from ..models import homo
 from ..ops import cuda_rhs
-from ..solvers import stiff_ensemble
+from ..solvers import dopri5, radau, stiff_ensemble
 
 _f32, _f64 = torch.float32, torch.float64
 
@@ -77,6 +86,164 @@ def _broadcast(params, axes, Bsz):
         else:
             out[key] = val.expand((Bsz,) + tuple(val.shape))
     return out
+
+
+def _solver(kind: str):
+    """The integrator module of a solver name (radau or dopri5)."""
+    return {"radau": radau, "dopri5": dopri5}[kind]
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "rmt_tpu_torch does not have mesh sharding yet (make_mesh / "
+            "shard_batch); run on one device with mesh=None")
+
+
+def _repeat(params, axes, reps):
+    """params with every swept leaf's members repeated ``reps`` times in
+    place (member b at rows b*reps ... b*reps + reps - 1)."""
+    out = {}
+    for key, val in params.items():
+        if isinstance(val, Mapping):
+            out[key] = _repeat(val, axes[key], reps)
+        elif axes[key] == 0:
+            out[key] = val.repeat_interleave(reps, dim=0)
+        else:
+            out[key] = val
+    return out
+
+
+def _batched_problem(spec, params, axes, rhs, initial_state, grid):
+    """The member-batched problem of a sweep: (f, f_stages, y0 (B, n),
+    ts (B, T)). f(t (B,), y (B, n)) maps the per-member rhs over members;
+    f_stages evaluates the three Radau stages of every member as one batch
+    of 3B rows (row 3b + i is stage i of member b, with member b's
+    parameters and feed state); grid(p) gives a member's output times."""
+    def derive(q):
+        d = homo.feed_state(spec, q)
+        return d, initial_state(spec, q, d), grid(q)
+
+    d, y0, ts = vmap(derive, in_dims=(axes,))(params)
+    fB = vmap(rhs, in_dims=(0, 0, axes, 0))
+    p3 = _repeat(params, axes, 3)
+    d3 = {k: v.repeat_interleave(3, dim=0) for k, v in d.items()}
+    n = y0.shape[1]
+
+    def f(t, y):
+        return fB(t, y, params, d)
+
+    def f_stages(t_st, Y):
+        return fB(t_st.reshape(-1), Y.reshape(-1, n), p3, d3).reshape(Y.shape)
+
+    return f, f_stages, y0, ts.to(y0.dtype)
+
+
+def _batched_runner(spec, rhs, initial_state, grid, rtol, atol, solver,
+                    solver_kwargs):
+    """fn(params, axes) -> (ys (B, T, n), stats) of the member-batched
+    integrator ``solver`` on a sweep."""
+    integrator = _solver(solver)
+
+    def run(params, axes):
+        f, f_stages, y0, ts = _batched_problem(spec, params, axes, rhs,
+                                               initial_state, grid)
+        kw = dict(solver_kwargs)
+        if solver == "radau":
+            kw["f_stages"] = f_stages
+        return integrator.odeint_batched(f, y0, ts, rtol=rtol, atol=atol,
+                                         **kw)
+
+    return run
+
+
+def _runners(spec, rhs, initial_state, grid, rtol, atol, solver):
+    """(single, build) of a model on the sequential integrator: single(p)
+    integrates one member's parameters, (ys (T, n), n_fev); build(axes)
+    returns fn(params) -> (ys (B, T, n), n_fev (B,)) over a sweep whose
+    batched leaves ``axes`` marks, every member with the result single
+    gives it up to rounding (the stages are batched differently)."""
+    def single(p):
+        d = homo.feed_state(spec, p)
+        y0 = initial_state(spec, p, d)
+        ys, stats = _solver(solver).odeint(
+            lambda t, y: rhs(t, y, p, d), y0, grid(p).to(y0.dtype),
+            rtol=rtol, atol=atol)
+        return ys, stats.n_fev
+
+    run = _batched_runner(spec, rhs, initial_state, grid, rtol, atol, solver,
+                          {})
+
+    def build(axes):
+        def fn(params):
+            ys, stats = run(params, axes)
+            return ys, stats.n_fev
+
+        return fn
+
+    return single, build
+
+
+def _n2_grid(spec):
+    """A member's N2 output times: opT * linspace(0, 1, tNo + 1)."""
+    def grid(p):
+        return p["opT"] * torch.linspace(0.0, 1.0, spec.t_no + 1,
+                                         dtype=p["opT"].dtype,
+                                         device=p["opT"].device)
+
+    return grid
+
+
+def make_n2_ensemble(spec: homo.HomoSpec, rtol: float = 1e-7,
+                     atol: float = 1e-10, solver: str = "radau", mesh=None):
+    """(single, build) runners of the N2 dynamic model on the sequential
+    integrator (rmt_tpu's make_n2_ensemble; see _runners): ys
+    (tNo+1, n) a member, each member with its own output times when opT
+    is swept. For the lockstep integrator use run_n2_ensemble_lockstep."""
+    _no_mesh(mesh)
+    return _runners(spec, homo.make_n2_rhs(spec), homo.n2_initial_state,
+                    _n2_grid(spec), rtol, atol, solver)
+
+
+def run_n2_ensemble(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
+                    rtol: float = 1e-7, atol: float = 1e-10,
+                    solver: str = "radau", mesh=None, device=None,
+                    return_stats: bool = False, **solver_kwargs):
+    """One-call ensemble sweep of the N2 dynamic model on the sequential
+    integrator (rmt_tpu's run_n2_ensemble), in config.default_float() on
+    ``device`` (default: the CUDA card; without one it raises, see
+    config.resolve_device). solver_kwargs (max_steps, timings, ...) go to
+    the member-batched integrator.
+
+    Returns (ys, nfev): ys (B, tNo+1, varNo*zNo) dimensionless states,
+    nfev (B,); with return_stats=True (ys, stats), the integrator's
+    per-member statistics (radau.RadauStats / dopri5.Dopri5Stats).
+    """
+    _no_mesh(mesh)
+    device = config.resolve_device(device)
+    spec = homo.build_spec(model_input)
+    base = homo.build_params(model_input, device=device)
+    params, axes = batch_params(base, sweep)
+    run = _batched_runner(spec, homo.make_n2_rhs(spec), homo.n2_initial_state,
+                          _n2_grid(spec), rtol, atol, solver, solver_kwargs)
+    ys, stats = run(params, axes)
+    return (ys, stats) if return_stats else (ys, stats.n_fev)
+
+
+def make_n1_ensemble(spec: homo.HomoSpec, rtol: float = 1e-7,
+                     atol: float = 1e-10, solver: str = "radau",
+                     z_out: int | None = None):
+    """(single, build) runners of the steady model, profiles over z
+    (rmt_tpu's make_n1_ensemble; see _runners): ys (z_out+1, n) a
+    member."""
+    n_out = (z_out if z_out is not None else spec.z_out) + 1
+
+    def grid(p):
+        return torch.linspace(0.0, 1.0, n_out, dtype=p["T0"].dtype,
+                              device=p["T0"].device)
+
+    return _runners(spec, homo.make_n1_rhs(spec), homo.n1_initial_state,
+                    grid, rtol, atol, solver)
 
 
 class N2Ensemble(NamedTuple):

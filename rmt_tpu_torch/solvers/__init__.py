@@ -1,1 +1,1 @@
-from . import radau, stiff_ensemble
+from . import dopri5, fixed, radau, stiff_ensemble
