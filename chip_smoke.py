@@ -70,7 +70,25 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      AB3 and PreCorr3 on Lotka-Volterra with per-member parameters at
      B = 4096 held to the same calls on the CPU at 1e-12, Dopri5 on
      exponential decay held to exp at 1e-7, and rmtExe N1 with ivp "AM"
-     must raise (the fixed stepper diverges, as in rmt_tpu).
+     must raise (the fixed stepper diverges, as in rmt_tpu);
+  9. est, adjoint-gradient estimation (BASELINE config #5;
+     rmt_tpu_torch.parallel.estimation on solvers/implicit_diff.py, float64,
+     scripts/bench_torch_estimation.py's configuration: N2 DME, period
+     0.5 s, zNo 8, 12 fixed Radau steps, T0 = 523 + linspace(-4, 4, B),
+     the constants K1-K3 at 523 K, uniform targets), which launches none
+     of the kernels (counts reset just before it, all 0 after it): a
+     warm-up and a timed step at B = 512 (wall, members/s forward and
+     adjoint, peak memory; loss and gradients finite); a B = 8 step at
+     every 73rd of those members, whose outlet mole fractions equal the
+     B = 512 rows at 1e-10, whose loss and theta_new equal the same step
+     on the CPU at 1e-9, and whose loss, gradients and outlet fractions
+     equal estimation_ref.npz (rmt_tpu, CPU float64) at 1e-8; the
+     adjoint gradient in K1 of one member against central differences
+     (eps 1e-4, bar 2e-4); Newton's root_batched on 4096 independent
+     cubic systems with per-member parameters and a closed-form root, to
+     a residual of 1e-12 (every member converged, 1e-10 from the root
+     relative to max(|root|, 1); the same call on the CPU gives equal
+     iteration counts and states within 1e-12) and root on one member.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -116,6 +134,11 @@ N1_KERNELS = ("ns_fused_step",)
 MICRO_B, MICROBATCH = 512, 256
 # the seq phase: explicit steppers at SEQ_B members, STEPS fixed steps
 SEQ_B, STEPS = 4096, 200
+# the est phase: the estimation step at EST_B members, held to its B =
+# EST_REF_B run (members EST_B // (EST_REF_B - 1) apart: the same inlet
+# temperatures) and to estimation_ref.npz; Newton at SEQ_B members of
+# NEWTON_N unknowns
+EST_B, EST_REF_B, NEWTON_N = 512, 8, 8
 
 
 def say(*args):
@@ -1051,6 +1074,163 @@ def seq_phase(torch, np, bench_seq, counts, dev, ref_n1):
     say(f"seq: phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
+def newton_system(torch, np, b, device):
+    """(f, r, member) of b independent cubic systems x**3 + p x + C x = q
+    in NEWTON_N unknowns (numpy seed SEED; p > 0 per member, C a shared
+    positive semidefinite coupling, so the root r is unique) on device:
+    f(x (b, n)) the batched residual, member(i) member i's f(x (n,))."""
+    rng = np.random.default_rng(SEED)
+    on = lambda a: torch.as_tensor(a, device=device)
+    p = on(rng.uniform(0.5, 2.0, (b, NEWTON_N)))
+    L = 0.3 * rng.standard_normal((NEWTON_N, NEWTON_N))
+    C = on(L @ L.T)
+    r = on(rng.uniform(-2.0, 2.0, (b, NEWTON_N)))
+    q = r ** 3 + p * r + r @ C
+
+    def f(x):
+        return x ** 3 + p * x + x @ C - q
+
+    def member(i):
+        return lambda x: x ** 3 + p[i] * x + x @ C - q[i]
+
+    return f, r, member
+
+
+def est_phase(torch, np, bench_est, counts, dev):
+    """Adjoint-gradient estimation and Newton on the card (see the module
+    docstring, phase 9): every check exits nonzero; no kernel may
+    launch."""
+    from rmt_tpu_torch.parallel import (outlet_mole_fractions,
+                                        simulate_n2_implicit)
+    from rmt_tpu_torch.solvers import newton
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+
+    def vals(d):
+        return np.array([float(d[k]) for k in bench_est.THETA0])
+
+    def step_on(device, b):
+        step, theta0, params, spec = bench_est.build(b, device)
+        loss, grads, mf = step.value_and_grad(theta0, params)
+        new = {k: theta0[k] - step.lr * grads[k] for k in theta0}
+        return dict(loss=float(loss), grads=vals(grads), theta_new=vals(new),
+                    mf=mf.cpu().numpy(), theta0=theta0, params=params,
+                    spec=spec)
+
+    reset_counts(counts)
+    t_phase = time.perf_counter()
+    step, theta0, params, spec = bench_est.build(EST_B, dev)
+    step.value_and_grad(theta0, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads, mf = step.value_and_grad(theta0, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g = vals(grads)
+    say(f"est: estimation step B {EST_B} (n {spec.var_no_n2 * spec.z_no}, "
+        f"{bench_est.N_STEPS} steps): wall {wall:.3f} s, members/s "
+        f"{EST_B / wall:.3f} (forward and adjoint), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; loss "
+        f"{float(loss):.12e}, gradients {g.tolist()}")
+    check(np.isfinite(float(loss)) and np.isfinite(g).all(),
+          "est: non-finite loss or gradient at B = 512")
+
+    # the B = 8 sweep's inlet temperatures are these rows' (511 = 7 x 73)
+    rows = np.arange(0, EST_B, (EST_B - 1) // (EST_REF_B - 1))
+    check(np.array_equal(bench_est.inlet_temperatures(EST_B)[rows],
+                         bench_est.inlet_temperatures(EST_REF_B)),
+          "est: the B = 8 members are not members of the B = 512 sweep")
+    card8 = step_on(dev, EST_REF_B)
+    d_b = rel(mf[rows].cpu().numpy(), card8["mf"])
+    cpu8 = step_on(torch.device("cpu"), EST_REF_B)
+    d_cpu = max(rel(card8["loss"], cpu8["loss"]),
+                rel(card8["theta_new"], cpu8["theta_new"]))
+    with np.load(os.path.join(ROOT, "estimation_ref.npz")) as z:
+        ref = {k: z[k] for k in z.files}
+    d_ref = {"loss": rel(card8["loss"], ref["loss"]),
+             "grads": rel(card8["grads"], ref["grads"]),
+             "outlet": rel(card8["mf"], ref["outlet"]),
+             "theta_new": rel(card8["theta_new"], ref["theta_new"])}
+    say(f"est: B {EST_REF_B} members (rows {rows[1]} apart of the B = "
+        f"{EST_B} sweep): outlet mole fractions against their B = {EST_B} "
+        f"rows {d_b:.4e} (bar 1e-10); loss and theta_new against the same "
+        f"step on the CPU {d_cpu:.4e} (bar 1e-9); against "
+        f"estimation_ref.npz (rmt_tpu, CPU float64) {json.dumps(d_ref)} "
+        f"(bar 1e-8)")
+    check(d_b <= 1e-10, f"est: a member differs from its B = {EST_B} row "
+          f"by {d_b}")
+    check(d_cpu <= 1e-9, f"est: card and CPU steps differ by {d_cpu}")
+    check(max(d_ref.values()) <= 1e-8,
+          f"est: the step differs from estimation_ref.npz: {d_ref}")
+
+    # the adjoint gradient in K1 of one member against central differences
+    spec, base = card8["spec"], card8["params"]
+    one = dict(base, T0=base["T0"][0])
+    w = torch.arange(1.0, spec.n_comp + 1, dtype=torch.float64, device=dev)
+
+    def functional(theta_log):
+        yf = simulate_n2_implicit(
+            spec, one, {k: torch.exp(v) for k, v in theta_log.items()},
+            bench_est.N_STEPS)
+        return torch.sum(w * outlet_mole_fractions(spec, yf))
+
+    th = {k: v.clone().requires_grad_() for k, v in card8["theta0"].items()}
+    ad = float(torch.autograd.grad(functional(th), [th["K1"]])[0])
+    eps = 1e-4
+    k1 = card8["theta0"]["K1"]
+    with torch.no_grad():
+        side = [float(functional(dict(card8["theta0"], K1=k1 + sgn * eps)))
+                for sgn in (1.0, -1.0)]
+    fd = (side[0] - side[1]) / (2 * eps)
+    d_fd = abs(ad - fd) / max(abs(fd), abs(ad), 1e-3)
+    say(f"est: d/dK1 of one member's weighted outlet functional: adjoint "
+        f"{ad:.10e}, central difference {fd:.10e}, relative {d_fd:.4e} "
+        f"(bar 2e-4)")
+    check(d_fd <= 2e-4, f"est: adjoint and central difference differ by "
+          f"{d_fd}")
+
+    # Newton to a residual of 1e-12 (the default 1e-10 stops up to 5e-10
+    # from the root); errors against the root over max(|r|, 1)
+    def root_err(x, r):
+        return float(((x.cpu() - r).abs() / r.abs().clamp(min=1.0)).max())
+
+    t0 = time.perf_counter()
+    f, r, member = newton_system(torch, np, SEQ_B, dev)
+    nb = newton.root_batched(f, torch.zeros_like(r), tol=1e-12)
+    torch.cuda.synchronize()
+    t_newton = time.perf_counter() - t0
+    f_h, r_h, _ = newton_system(torch, np, SEQ_B, torch.device("cpu"))
+    nh = newton.root_batched(f_h, torch.zeros_like(r_h), tol=1e-12)
+    e_root = root_err(nb.x, r_h)
+    e_cpu = float((nb.x.cpu() - nh.x).abs().max())
+    same_it = torch.equal(nb.iterations.cpu(), nh.iterations)
+    n1 = newton.root(member(0), torch.zeros_like(r[0]), tol=1e-12)
+    e_one = root_err(n1.x, r_h[0])
+    say(f"est: root_batched B {SEQ_B}, n {NEWTON_N}: {t_newton:.3f} s, "
+        f"converged {int(nb.converged.sum())}, iterations max "
+        f"{int(nb.iterations.max())}, error against the closed form "
+        f"{e_root:.4e} (bar 1e-10); against the CPU: states "
+        f"{e_cpu:.4e} (bar 1e-12), equal iteration counts {same_it}; root "
+        f"on member 0: {int(n1.iterations)} iterations (root_batched "
+        f"{int(nb.iterations[0])}), converged {bool(n1.converged)}, "
+        f"error {e_one:.4e} (bar 1e-10)")
+    check(bool(nb.converged.all()), "est: a Newton member did not converge")
+    check(e_root <= 1e-10, f"est: root_batched off the root by {e_root}")
+    check(e_cpu <= 1e-12 and same_it,
+          f"est: root_batched card and CPU differ ({e_cpu}, {same_it})")
+    check(bool(n1.converged) and e_one <= 1e-10,
+          f"est: root on one member off the root by {e_one}")
+
+    launches = {k: v for table in counts for k, v in table.items()}
+    say(f"est: kernel launches {launches} (the estimation path runs none)")
+    check(not any(launches.values()),
+          f"est: a kernel launched on the estimation path: {launches}")
+    say(f"est: phase wall {time.perf_counter() - t_phase:.3f} s")
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -1060,6 +1240,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on a card")
     sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
+    import bench_torch_estimation as bench_est
     import bench_torch_n1 as bench_n1
     import bench_torch_seq as bench_seq
     import rmt_tpu_torch  # noqa: F401 (its import turns TF32 off: header)
@@ -1067,15 +1248,16 @@ def main():
     dev = torch.device("cuda:0")
     card = header(torch)
     ref_proc = start_n1_reference()
+    benches = SimpleNamespace(n1=bench_n1, seq=bench_seq, est=bench_est)
     try:
-        phases(torch, np, card, dev, bench_n1, bench_seq, ref_proc, t_start)
+        phases(torch, np, card, dev, benches, ref_proc, t_start)
     finally:
         if ref_proc.poll() is None:
             ref_proc.kill()
         ref_proc.communicate()
 
 
-def phases(torch, np, card, dev, bench_n1, bench_seq, ref_proc, t_start):
+def phases(torch, np, card, dev, benches, ref_proc, t_start):
     from torch.func import vmap
 
     from rmt_tpu_torch.cases import ch4_case, dme_case
@@ -1145,7 +1327,7 @@ def phases(torch, np, card, dev, bench_n1, bench_seq, ref_proc, t_start):
     res.update(ns_phase(torch, np, cuda_ns, tableau, J, h0, dev))
     del J
     res["ns_fused_step"]["n1_shape"] = ns_n1_phase(
-        torch, cuda_ns, tableau, n1_jacobians(torch, bench_n1, dev, gamma))
+        torch, cuda_ns, tableau, n1_jacobians(torch, benches.n1, dev, gamma))
     for k, v in (*res.items(),
                  ("ns_fused_step (N1 shape)", res["ns_fused_step"]["n1_shape"])):
         lib = ("none" if v["library_ms"] is None
@@ -1182,11 +1364,12 @@ def phases(torch, np, card, dev, bench_n1, bench_seq, ref_proc, t_start):
             chem="ch4", b=b_ch4, opts=F32X, bar=1e-6, kernels=F32X_KERNELS),
     }
     ref_n1 = n1_reference(np, ref_proc)
-    by_path["n1"] = phase("n1 sweep", n1_phase, torch, np, bench_n1, counts,
-                          dev, ref_n1)
+    by_path["n1"] = phase("n1 sweep", n1_phase, torch, np, benches.n1,
+                          counts, dev, ref_n1)
     phase("microbatch", microbatch_phase, torch, np, mi,
           run_n2_ensemble_lockstep, dev)
-    phase("seq", seq_phase, torch, np, bench_seq, counts, dev, ref_n1)
+    phase("seq", seq_phase, torch, np, benches.seq, counts, dev, ref_n1)
+    phase("est", est_phase, torch, np, benches.est, counts, dev)
     say("phase walls (s): " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
 

@@ -9,11 +9,15 @@
 # in config.default_float() on the CUDA card, or on the device the caller
 # names. Eager PyTorch compiles nothing, so there is no cache of built
 # programs. Every other model id of rmt_tpu raises NotImplementedError
-# until its port lands; so does display-result "True" (io/plot is not
-# ported).
+# until its port lands. display-result "True" plots the result after the
+# run through io/plot (matplotlib on the host), as rmt_tpu does;
+# RMT_TORCH_PROFILE=<dir> writes a torch.profiler trace of the call.
 
 from __future__ import annotations
 
+import os
+import time
+import warnings
 from timeit import default_timer as timer
 from typing import Any, Mapping
 
@@ -469,7 +473,42 @@ def rmtExe(modelInput: Mapping[str, Any], device=None):
     """Check model input, then start computation (reference: rmt.py:21-80),
     in config.default_float() on ``device`` (default: the CUDA card;
     without one it raises, see config.resolve_device; pass device="cpu"
-    for the CPU)."""
+    for the CPU).
+
+    Set RMT_TORCH_PROFILE=<dir> to write a torch.profiler Chrome trace of
+    the call into <dir> (host operations, and the card's kernels when the
+    call runs on one; viewable in Perfetto or chrome://tracing), the
+    counterpart of rmt_tpu's RMT_TPU_PROFILE.
+    """
+    profile_dir = os.environ.get("RMT_TORCH_PROFILE")
+    if not profile_dir:
+        return _rmt_exe_inner(modelInput, device)
+    dev = torch.device(device) if device is not None else (
+        config.default_device())
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda" and torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    # profiler sessions cannot nest: a caller that already holds one must
+    # not turn an opt-in debug switch into a failure -- run untraced
+    try:
+        if torch.autograd._profiler_enabled():
+            raise RuntimeError("a profiler is already running")
+        prof.start()
+    except RuntimeError as e:
+        warnings.warn(f"RMT_TORCH_PROFILE: trace not started ({e}); "
+                      "running un-profiled", RuntimeWarning)
+        return _rmt_exe_inner(modelInput, device)
+    try:
+        return _rmt_exe_inner(modelInput, device)
+    finally:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            profile_dir, f"rmtExe-{os.getpid()}-{time.time_ns()}.json"))
+
+
+def _rmt_exe_inner(modelInput: Mapping[str, Any], device):
     tic = timer()
     _validate_model_input(modelInput)
     model_type = modelInput["model"]
@@ -492,15 +531,18 @@ def rmtExe(modelInput: Mapping[str, Any], device=None):
             f"({where}; ported: {', '.join(_PORTED)})"
         )
     opts = _solver_options(modelInput)
-    if opts["display"]:
-        raise NotImplementedError(
-            'solver-config "display-result": "True" needs io/plot, which '
-            "rmt_tpu_torch does not have yet")
     device = config.resolve_device(device)
     dtype = config.default_float()
     spec = homo.build_spec(modelInput)
     run = _run_n1 if model_type == "N1" else _run_n2
     res_model = run(modelInput, spec, opts, device, dtype)
+    if opts["display"]:
+        from ..io import plot as _plot
+
+        if model_type == "N1":
+            _plot.plot_results_steady_state(res_model)
+        else:
+            _plot.plot_results_dynamic(res_model, spec.t_no)
 
     com_time = (timer() - tic) * 1000
     return {"resModel": res_model, "comTime": com_time}

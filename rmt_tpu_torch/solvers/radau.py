@@ -105,19 +105,20 @@ def radau_tableau(s: int = 3):
 
 
 def reverse_jacobian(f, t, y):
-    """Dense Jacobian (B, n, n) of a batched f(t (B,), y (B, n)) at y by
+    """Dense Jacobian (..., n, n) of a batched f(t, y (..., n)) at y by
     reverse-mode AD: one vector-Jacobian product a output entry, the n
-    unit cotangents mapped in one call. The same matrix as the forward
-    mode of stiff_ensemble.batched_jacobian (jax.jacfwd in the
+    unit cotangents mapped in one call; every row of the leading axes
+    must depend on its own input row alone. The same matrix as the
+    forward mode of stiff_ensemble.batched_jacobian (jax.jacfwd in the
     reference) up to rounding, at about a fifth of the host time: in
     eager PyTorch every forward-mode operation that mixes a dual tensor
     with a parameter (no tangent) builds a zero tangent whose shape is
     computed by Python meta functions."""
-    Bsz, n = y.shape
+    n = y.shape[-1]
     _, pull = torch.func.vjp(lambda yy: f(t, yy), y)
     eye = torch.eye(n, dtype=y.dtype, device=y.device)
-    rows = torch.func.vmap(lambda e: pull(e.expand(Bsz, n))[0])(eye)
-    return rows.permute(1, 0, 2)                            # (B, out, in)
+    rows = torch.func.vmap(lambda e: pull(e.expand(y.shape))[0])(eye)
+    return torch.movedim(rows, 0, -2)                       # (..., out, in)
 
 
 class RadauStats(NamedTuple):

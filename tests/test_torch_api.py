@@ -2,8 +2,9 @@
 # against rmt_tpu's on the CPU in float64: N1 non-isothermal and
 # isothermal, N2 at a narrow grid (zNo 5, tNo 2: both packages'
 # build_spec are given these, since rmtExe takes the N2 grid from
-# HomoSpec's defaults), checkpoint/resume, the solver-config routes, the
-# schema gate of tests/test_api_schema.py, and the device rules.
+# HomoSpec's defaults), checkpoint/resume, the solver-config routes,
+# display-result on N1, the schema gate of tests/test_api_schema.py, and
+# the device rules.
 
 import functools
 
@@ -149,9 +150,20 @@ def test_unknown_model_id_raises_not_implemented():
         t_exe(make_model_input(model="M6"))
 
 
-def test_display_result_is_not_ported():
-    with pytest.raises(NotImplementedError, match="display-result"):
-        t_exe(make_model_input(model="N1", display="True"))
+def test_display_result_is_not_ported(monkeypatch):
+    """display-result "True" on N1 plots the profiles through the port's
+    io/plot after the run (one figure, one show, as rmt_tpu's
+    tests/test_io.py counts), and returns the result unchanged."""
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    shown = []
+    monkeypatch.setattr(plt, "show", lambda: shown.append(1))
+    res = t_exe(make_model_input(model="N1", display="True"))
+    plt.close("all")
+    assert len(shown) == 1
+    assert res["resModel"][0]["dataYs"].shape == (8, 101)
 
 
 def _typo(mi, section, key):
