@@ -30,10 +30,16 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      kernel's 4-byte copies); each RHS result must be a contiguous
      row-major (M, n) tensor; the Newton-Schulz kernel (dense float32
      products against cuBLAS) is held to 2e-5, and to a float64
-     evaluation, at n = 140, 24, 30, 80 and 100, and must refuse n = 200;
-     it is also held to 2e-5 at the N1 shapes (B = 4096; n = 8, and n = 7
+     evaluation, at n = 140, 24, 30, 80 and 100; its wide route
+     (csrc/ns_wide.cu, the members wider than 160) to 2e-5 at n = 161,
+     200, 210 and 420, bit for bit on a repeat, and at the f32_wide
+     phase's shape (B = 256, n = 210, J the zNo-30 DME Jacobians) also to
+     a float64 evaluation, timed there and at n = 420 (B = 64); it is
+     also held to 2e-5 at the N1 shapes (B = 4096; n = 8, and n = 7
      of the iso-thermal process; J the N1 Jacobians at the sweep's inlet)
      and timed at n = 8 beside its twin, three torch.bmm and its bound;
+     the three block kernels equal their twins bit for bit at M2's shape
+     (m = 7, z = 100) for B = 1 and B = 33;
   3. the f32x DME sweep (bench.py's headline leg: df32 kinetics, exact
      block solves) at B = 4096 through
      rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, with the 64 probe
@@ -88,7 +94,27 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      cubic systems with per-member parameters and a closed-form root, to
      a residual of 1e-12 (every member converged, 1e-10 from the root
      relative to max(|root|, 1); the same call on the CPU gives equal
-     iteration counts and states within 1e-12) and root on one member.
+     iteration counts and states within 1e-12) and root on one member;
+ 10. f32_wide: the f32 DME leg at zNo 30 (n = 210: ns_fused_step's wide
+     route) at F32_WIDE_B members, T0 = 523 + linspace(-5, 5, B), against
+     the f32x leg at the same zNo and members (the block kernels at
+     z = 30): every member of both finishes, every state is finite, the
+     f32 states stay within 5e-5 of the f32x states (the f32 guard's
+     bar), and each leg's kernels launch as its chunks say (counts reset
+     just before each leg);
+ 11. models, rmtExe of the packed-bed, plug-flow and batch models on the
+     card (rmt_tpu_torch/cases/pb_case.py's inputs) against
+     models_ref.npz (rmt_tpu, CPU float64): M0, M1, M3, M4, M7 and M8 in
+     a child process that starts before phase 8 (the sequential Radau
+     integrator is the host's work), each within 1e-6 relative; M2 at the
+     default grid (zNo 100, tNo 10, n = 700: the lockstep integrator at
+     B = 1 in block mode, its blocks from the dense colored Jacobian) in
+     this process within 1e-5 relative, its attempts within 1.25 times
+     the reference's, the three block kernels launched as its chunks say
+     and no other kernel (counts reset just before it); M9's RHS and
+     frozen-march Jacobian blocks on the card against the CPU at 1e-12
+     (rmt_tpu's own M9 run exhausts its attempt budget, so M9 is not
+     integrated here).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -130,6 +156,12 @@ F32X_KERNELS = ("block_factor", "block_apply", "block_apply_real",
                 "n2_rhs_df32", "n2_rhs_plain")
 F32_KERNELS = ("ns_fused_step", "n2_rhs_plain")
 N1_KERNELS = ("ns_fused_step",)
+# the f32_wide phase: both DME legs at zNo WIDE_Z (n = 210) and
+# F32_WIDE_B members; the f32 leg's Newton-Schulz steps take the wide route
+WIDE_Z, F32_WIDE_B = 30, 256
+F32_WIDE_KERNELS = ("ns_fused_step_wide", "n2_rhs_plain")
+# the models phase: rmtExe M2's stage solves
+M2_KERNELS = ("block_factor", "block_apply", "block_apply_real")
 # the microbatch check: MICRO_B members in slices of MICROBATCH
 MICRO_B, MICROBATCH = 512, 256
 # the seq phase: explicit steppers at SEQ_B members, STEPS fixed steps
@@ -235,14 +267,14 @@ def rel_err(got, want, floor):
     return float((d / (want.double().abs() + floor)).max()), float(d.max())
 
 
-def block_inputs(torch, np, cuda_block, tableau, dev, m=7, B=B):
+def block_inputs(torch, np, cuda_block, tableau, dev, m=7, B=B, z=20):
     """Random stiff block-bidiagonal systems (the inputs of
-    tests/test_pallas_block.py) at B members, z = 20 nodes, m variables a
-    node (7, the DME path's), in numpy and as the kernels' member-last
-    tensors, with the Radau shifts and block_apply's constants."""
+    tests/test_pallas_block.py) at B members, z nodes (20, the DME path's),
+    m variables a node (7, the DME path's), in numpy and as the kernels'
+    member-last tensors, with the Radau shifts and block_apply's
+    constants."""
     _, A_np, _, _, w, T, Tinv = tableau
     gamma, mu_r, mu_i = float(w[0].real), float(w[1].real), float(w[1].imag)
-    z = 20
     n = m * z
     rng = np.random.default_rng(SEED)
     Jd = (5.0 * rng.standard_normal((B, z, m, m))).astype(np.float32)
@@ -298,8 +330,11 @@ def block_phase(torch, np, cuda_block, tableau, dev):
     x_r = cuda_block.block_apply_real(*args_r, gamma=gamma)
     x_rt = cuda_block.block_apply_real_twin(*args_r, gamma)
     # the CH4 guard's shape, m = 4 at B = 16: the kernels' m = 4
-    # instances, which only that path runs
+    # instances, which only that path runs; M2's, z = 100 at B = 1 (its
+    # one member) and at B = 33 (a tile and one member)
     y = block_inputs(torch, np, cuda_block, tableau, dev, m=4, B=16)
+    m2 = [block_inputs(torch, np, cuda_block, tableau, dev, B=b, z=100)
+          for b in (1, 33)]
     ch4 = [(cuda_block.block_factor(y.Jd_t, y.h_t * s, **kw),
             cuda_block.block_factor_twin(y.Jd_t, y.h_t * s, gamma, mu_r,
                                          mu_i)) for s in (1.0, 1000.0)]
@@ -347,6 +382,30 @@ def block_phase(torch, np, cuda_block, tableau, dev):
         say(f"{name}: max_abs_err {err:.3e} at the CH4 shape (m = 4, "
             f"B = 16)")
         check(err == 0.0, f"{name} at m = 4 differs from its twin by {err}")
+    for v in m2:
+        b = v.h_t.shape[0]
+        fk_m, ft_m = (cuda_block.block_factor(v.Jd_t, v.h_t, **kw),
+                      cuda_block.block_factor_twin(v.Jd_t, v.h_t, gamma,
+                                                   mu_r, mu_i))
+        pairs = {
+            "block_factor": (fk_m, ft_m),
+            "block_apply": (
+                (cuda_block.block_apply(v.R_t, *fk_m, v.Jl_t, v.h_t,
+                                        coef=coef),),
+                (cuda_block.block_apply_twin(v.R_t, *fk_m, v.Jl_t, v.h_t,
+                                             coef),)),
+            "block_apply_real": (
+                (cuda_block.block_apply_real(v.e_t, fk_m[0], v.Jl_t, v.h_t,
+                                             gamma=gamma),),
+                (cuda_block.block_apply_real_twin(v.e_t, fk_m[0], v.Jl_t,
+                                                  v.h_t, gamma),))}
+        torch.cuda.synchronize()
+        for name, (got, want) in pairs.items():
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            say(f"{name}: max_abs_err {err:.3e} at M2's shape (m = 7, "
+                f"z = 100, B = {b})")
+            check(err == 0.0, f"{name} at z = 100, B = {b} differs from its "
+                  f"twin by {err}")
 
     # the kernel's stage solve is exact: M dK = R with the dense Kronecker
     # operator M = I - h A (x) J, in float64, for a few members
@@ -619,18 +678,91 @@ def ns_phase(torch, np, cuda_ns, tableau, J, h0, dev):
         say(f"ns_fused_step: n = {ns}, B = {Bs}: {e_s:.3e} (bar 2e-5)")
         check(e_s <= 2e-5, f"ns_fused_step at n = {ns} differs by {e_s}")
 
-    # a width whose panel does not fit one block is refused before launch
-    big = torch.zeros((2, 200, 200), device=dev)
-    try:
-        cuda_ns.ns_fused_step(big, big, big, big, h[:2].contiguous(), **eig)
-    except ValueError as e:
-        say(f"ns_fused_step: n = 200 refused: {e}")
-    else:
-        check(False, "ns_fused_step did not refuse n = 200")
-    del big
-
     return {"ns_fused_step": ns_times(torch, cuda_ns, eig, J, P, h, want,
                                       ws, abs_tw, host_calls=5)}
+
+
+def random_stiff(torch, np, rng, Bs, ns, dev):
+    """(J, h) of Bs random stiff members of edge ns (the inputs of
+    tests/test_pallas_ns.py), float32 on dev."""
+    J = torch.as_tensor(
+        (-np.eye(ns) * rng.uniform(1.0, 50.0, (Bs, 1, 1))
+         + 0.3 * rng.standard_normal((Bs, ns, ns))).astype(np.float32),
+        device=dev)
+    h = torch.as_tensor(rng.uniform(0.005, 0.02, Bs).astype(np.float32),
+                        device=dev)
+    return J, h
+
+
+def ns_wide_phase(torch, np, cuda_ns, tableau, J, h0, dev):
+    """ns_fused_step's wide route (members wider than 160, csrc/ns_wide.cu)
+    against its twin: at n = 161, 200, 210 and 420 on random stiff
+    members, then at the f32_wide phase's shape (J the zNo-30 DME
+    Jacobians at the sweep's inlet, h and P as ns_operands makes them)
+    also against float64, twice for the same bits; timed there and at
+    n = 420 (B = 64). Returns its record."""
+    eig = ns_eig(tableau)
+    rng = np.random.default_rng(SEED)
+    for Bs, ns in ((3, 161), (3, 200), (3, 210), (2, 420)):
+        check(cuda_ns.route(ns) == "wide", f"n = {ns} is not routed wide")
+        Js, hs = random_stiff(torch, np, rng, Bs, ns, dev)
+        Ps = cuda_ns.ns_cold_start(Js, hs, **eig)
+        g_s = cuda_ns.ns_fused_step(Js, *Ps, hs, **eig)
+        w_s = cuda_ns.ns_fused_step_twin(Js, *Ps, hs, *eig.values())
+        e_s = max(ns_scaled(a, b) for a, b in zip(g_s, w_s))
+        say(f"ns_fused_step (wide): n = {ns}, B = {Bs}: {e_s:.3e} (bar 2e-5) "
+            f"({cuda_ns.wide_geometry(ns)})")
+        check(e_s <= 2e-5, f"ns_fused_step (wide) at n = {ns} differs by "
+              f"{e_s}")
+    Bn, n, _ = J.shape
+    h, P = ns_operands(torch, cuda_ns, eig, J, h0)
+    ws = cuda_ns.Workspace(Bn, n, dev)
+    got = [t.clone() for t in cuda_ns.ns_fused_step(J, *P, h, **eig,
+                                                    workspace=ws)]
+    again = cuda_ns.ns_fused_step(J, *P, h, **eig, workspace=ws)
+    want = cuda_ns.ns_fused_step_twin(J, *P, h, *eig.values())
+    f64 = torch.float64
+    ref = cuda_ns.ns_fused_step_twin(J.to(f64), *(p.to(f64) for p in P),
+                                     h.to(f64), *eig.values())
+    torch.cuda.synchronize()
+    err_tw = max(ns_scaled(g, t) for g, t in zip(got[:3], want[:3]))
+    abs_tw = max(float((g - t).abs().max()) for g, t in zip(got, want))
+    rho_rel = float(((got[3] - want[3]).abs()
+                     / want[3].abs().clamp(min=1e-3)).max())
+    err_k = max(ns_scaled(g, r) for g, r in zip(got, ref))
+    err_p = max(ns_scaled(t, r) for t, r in zip(want, ref))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    say(f"ns_fused_step (wide): f32_wide shape B = {Bn}, n = {n}: input rho "
+        f"max {float(want[3].max()):.3e}; |got - want| / (1 + |want|) "
+        f"{err_tw:.3e}, rho rel {rho_rel:.3e} (bar 2e-5), abs {abs_tw:.3e}; "
+        f"against float64 kernel {err_k:.3e} vs plain {err_p:.3e}; the same "
+        f"bits twice {same}")
+    for g in got:
+        check(bool(torch.isfinite(g).all()), "ns_fused_step (wide) is not "
+              "finite")
+    check(err_tw <= 2e-5 and rho_rel <= 2e-5,
+          f"ns_fused_step (wide) differs from its twin by {err_tw}, rho "
+          f"{rho_rel}")
+    check(err_k <= 2.0 * err_p, f"ns_fused_step (wide) float64 error "
+          f"{err_k} over twice the plain version's {err_p}")
+    check(same, "ns_fused_step (wide) is not reproducible")
+    res = dict(B=Bn, n=n, **ns_times(torch, cuda_ns, eig, J, P, h, want, ws,
+                                     abs_tw, host_calls=5))
+    J4, h4 = random_stiff(torch, np, rng, 64, 420, dev)
+    P4 = cuda_ns.ns_cold_start(J4, h4, **eig)
+    for _ in range(3):
+        *P4, _ = cuda_ns.ns_fused_step_twin(J4, *P4, h4, *eig.values())
+    P4 = tuple(p.contiguous() for p in P4)
+    w4 = cuda_ns.ns_fused_step_twin(J4, *P4, h4, *eig.values())
+    g4 = cuda_ns.ns_fused_step(J4, *P4, h4, **eig)
+    e4 = max(ns_scaled(a, b) for a, b in zip(g4, w4))
+    check(e4 <= 2e-5, f"ns_fused_step (wide) at n = 420, B = 64 differs by "
+          f"{e4}")
+    res["n420"] = dict(B=64, n=420, **ns_times(
+        torch, cuda_ns, eig, J4, P4, h4, w4, cuda_ns.Workspace(64, 420, dev),
+        max(float((a - b).abs().max()) for a, b in zip(g4, w4)),
+        host_calls=5))
+    return res
 
 
 def ns_eig(tableau):
@@ -704,9 +836,11 @@ def ns_times(torch, cuda_ns, eig, J, P, h, want, ws, max_abs_err,
             J, *P, h, *eig.values())),
         library_ms=time_ms(torch, lambda: three_bmm(torch, eig, J, P, h)),
         **bound(4 * (7 * Bn * n * n + 2 * Bn), ops))
+    geo = (cuda_ns.wide_geometry(n) if cuda_ns.route(n) == "wide"
+           else cuda_ns.geometry(n))
     say(f"ns_fused_step: {ops / res['ms'] * 1e-9:.2f} TFLOP/s, "
         f"{res['bound_ms'] / res['ms']:.3f} of its bound, at B = {Bn}, "
-        f"n = {n} ({cuda_ns.geometry(n)})")
+        f"n = {n} ({geo})")
     return res
 
 
@@ -826,7 +960,9 @@ def check_launches(name, counts, kernels, stats, opts):
     if "block_factor" in kernels:
         check(launches["block_factor"] == n_chunks * opts["j_every"],
               f"{name}: block_factor did not run once per attempt")
-    if "ns_fused_step" in kernels:
+    for ns in ("ns_fused_step", "ns_fused_step_wide"):
+        if ns not in kernels:
+            continue
         # per chunk: the refresh and one maintenance step per attempt;
         # each cold rescue repeats a refresh; the refresh queued ahead of
         # the early-exit read is dropped when every member has finished
@@ -834,11 +970,10 @@ def check_launches(name, counts, kernels, stats, opts):
         want = (n_chunks * (opts["ns_refresh"]
                             + opts["j_every"] * opts["ns_step"])
                 + opts["ns_refresh"] * (stats.n_rescue + dropped))
-        say(f"{name}: ns_fused_step launches expected {want} ({n_chunks} "
-            f"chunks, {stats.n_rescue} rescues, {dropped} dropped refresh)")
-        check(launches["ns_fused_step"] == want,
-              f"{name}: ns_fused_step launched {launches['ns_fused_step']} "
-              f"times, expected {want}")
+        say(f"{name}: {ns} launches expected {want} ({n_chunks} chunks, "
+            f"{stats.n_rescue} rescues, {dropped} dropped refresh)")
+        check(launches[ns] == want,
+              f"{name}: {ns} launched {launches[ns]} times, expected {want}")
     return launches
 
 
@@ -1074,6 +1209,156 @@ def seq_phase(torch, np, bench_seq, counts, dev, ref_n1):
     say(f"seq: phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
+class z_no_of:
+    """Within the block, homo.build_spec gives every N2 model z_no axial
+    nodes (rmtExe and the ensembles take the grid from HomoSpec's
+    defaults, zNo 20)."""
+
+    def __init__(self, homo, z_no):
+        self.homo, self.z_no = homo, z_no
+
+    def __enter__(self):
+        import functools
+
+        self.saved = self.homo.build_spec
+        self.homo.build_spec = functools.partial(self.saved, z_no=self.z_no)
+
+    def __exit__(self, *exc):
+        self.homo.build_spec = self.saved
+
+
+def f32_wide_phase(torch, np, homo, mi, run, counts, dev):
+    """The f32 DME leg at zNo WIDE_Z (ns_fused_step's wide route) against
+    the f32x leg at the same zNo and F32_WIDE_B members (see the module
+    docstring, phase 10)."""
+    t0s = 523.0 + np.linspace(-5.0, 5.0, F32_WIDE_B)
+    legs, by_path = {}, {}
+    with z_no_of(homo, WIDE_Z):
+        for name, opts, kernels in (("f32x", F32X, F32X_KERNELS),
+                                    ("f32", F32, F32_WIDE_KERNELS)):
+            reset_counts(counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys, st = run(mi, {"T0": t0s}, device=dev, **opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            unfinished = int(torch.sum(st.seg < ys.shape[0] - 1))
+            att = (st.n_accepted + st.n_rejected).cpu().numpy()
+            label = f"f32_wide {name} (zNo {WIDE_Z}, n {ys.shape[2]})"
+            say(f"{label}: B {F32_WIDE_B}, wall {wall:.3f} s, attempts mean "
+                f"{att.mean():.1f} max {int(att.max())}; unfinished "
+                f"{unfinished}; Jacobian refreshes {st.n_jev - 1}, cold "
+                f"rescues {st.n_rescue}")
+            check(unfinished == 0, f"{label}: {unfinished} members exhausted "
+                  "the budget")
+            check(bool(torch.isfinite(ys).all()), f"{label}: non-finite "
+                  "states")
+            by_path[name] = check_launches(label, counts, kernels, st, opts)
+            legs[name] = ys.double().cpu().numpy()
+    rel = np.abs(legs["f32"] - legs["f32x"]) / np.maximum(
+        np.abs(legs["f32x"]), 1e-7)
+    say(f"f32_wide: f32 against f32x over every member and output time: "
+        f"max_rel_err {rel.max():.4e} mean {rel.mean():.4e} (bar 5e-5)")
+    check(rel.max() <= 5e-5, f"f32_wide: f32 and f32x differ by {rel.max()}")
+    return by_path
+
+
+def start_steady_models():
+    """A child process running rmtExe M0, M1, M3, M4, M7 and M8 on the card
+    (scripts/bench_torch_seq.steady_model, one call each) while this
+    process works; it writes a JSON list of their records to its stdout."""
+    code = "\n".join((
+        f"import sys, json; sys.path[:0] = [{ROOT!r}, "
+        f"{os.path.join(ROOT, 'scripts')!r}]",
+        "import torch",
+        "import bench_torch_seq as b",
+        "ref = b.models_ref()",
+        "out = [b.steady_model(torch, torch.device('cuda:0'), m, ref, "
+        "warm=False) for m in b.STEADY_MODELS]",
+        "print(json.dumps(out))"))
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def models_phase(torch, np, bench_seq, counts, dev, steady_proc):
+    """rmtExe of the packed-bed, plug-flow and batch models on the card
+    (see the module docstring, phase 11). Returns M2's launch counts."""
+    from rmt_tpu_torch import rmtExe
+    from rmt_tpu_torch.cases import pb_case
+    from rmt_tpu_torch.models import pb
+    from rmt_tpu_torch.ops import block_solve, jacobian
+
+    t_phase = time.perf_counter()
+    ref = bench_seq.models_ref()
+    reset_counts(counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rmtExe(pb_case.m2_model_input(), device=dev)["resModel"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = res["solverStats"]
+    attempts = st["n_accepted"][0] + st["n_rejected"][0]
+    ref_att = int(ref["m2_attempts"].sum())
+    err = max(bench_seq.max_rel(res["dataPacktime"], ref["m2_packtime"]),
+              bench_seq.max_rel(res["checkpoint"]["state"], ref["m2_state"]))
+    say(f"models: rmtExe M2 (zNo 100, tNo 10, n 700, B 1, block mode): wall "
+        f"{wall:.3f} s, attempts {attempts} (reference {ref_att}, bar x "
+        f"{bench_seq.ATTEMPTS_RATIO}), Jacobian refreshes {st['n_jev'] - 1}; "
+        f"max_rel_err against models_ref.npz {err:.4e} (bar "
+        f"{bench_seq.BAR_M2:g})")
+    check(bool(np.isfinite(res["dataPacktime"]).all()), "models: M2 is not "
+          "finite")
+    check(err <= bench_seq.BAR_M2, f"models: M2 differs by {err}")
+    check(ref_att / bench_seq.ATTEMPTS_RATIO <= attempts
+          <= bench_seq.ATTEMPTS_RATIO * ref_att,
+          f"models: M2 took {attempts} attempts against {ref_att}")
+    launches = check_launches(
+        "models M2", counts, M2_KERNELS,
+        SimpleNamespace(n_jev=st["n_jev"], n_rescue=0), {"j_every": 16})
+
+    # M9: the RHS and its frozen-march Jacobian blocks, card against CPU
+    mi9 = pb_case.model_input("M9")
+    spec = pb.build_spec(mi9)
+    var_no = spec.n_comp + 1
+    pert = np.random.default_rng(SEED).uniform(0.98, 1.02,
+                                               (2, var_no * spec.z_no))
+
+    def m9_on(where):
+        """M9's RHS and frozen-march Jacobian blocks at two perturbed
+        states on ``where``."""
+        p = pb.build_params(mi9, device=where)
+        y = pb.m9_initial_state(spec, p) * torch.as_tensor(pert,
+                                                           device=where)
+        frozen = pb.make_m9_rhs(spec, frozen_march_jac=True)
+        jac = jacobian.batched_colored_jacobian(
+            lambda x: frozen(None, x, p),
+            jacobian.banded_coloring(var_no, spec.z_no))
+        return (pb.make_m9_rhs(spec)(None, y, p),
+                *block_solve.extract_bidiag_blocks(jac(y), var_no,
+                                                   spec.z_no))
+
+    e9 = max(float((a.cpu() - b).abs().max() / b.abs().max())
+             for a, b in zip(m9_on(dev), m9_on(torch.device("cpu"))))
+    say(f"models: M9 (zNo {spec.z_no}) RHS and frozen-march Jacobian blocks "
+        f"on the card against the CPU: {e9:.3e} of each one's max (bar "
+        f"1e-12)")
+    check(e9 <= 1e-12, f"models: M9 on the card differs by {e9}")
+
+    t0 = time.perf_counter()
+    sout, serr = steady_proc.communicate(timeout=900)
+    check(steady_proc.returncode == 0, "models: the steady-model child "
+          "failed: " + serr.decode(errors="replace")[-2000:])
+    say(f"models: steady-model child ready (waited "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for r in json.loads(sout.decode().strip().splitlines()[-1]):
+        say(f"models: {r['part']} ({r['n_var']} rows x {r['points']} "
+            f"points): wall {r['first_s']:.3f} s (its process's first call "
+            f"of it), max_rel_err {r['max_rel_err']:.4e} (bar {r['bar']:g})")
+        check(r["ok"], f"models: {r['part']} failed its check: {r}")
+    say(f"models: phase wall {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 def newton_system(torch, np, b, device):
     """(f, r, member) of b independent cubic systems x**3 + p x + C x = q
     in NEWTON_N unknowns (numpy seed SEED; p > 0 per member, C a shared
@@ -1248,16 +1533,18 @@ def main():
     dev = torch.device("cuda:0")
     card = header(torch)
     ref_proc = start_n1_reference()
+    children = [ref_proc]
     benches = SimpleNamespace(n1=bench_n1, seq=bench_seq, est=bench_est)
     try:
-        phases(torch, np, card, dev, benches, ref_proc, t_start)
+        phases(torch, np, card, dev, benches, ref_proc, children, t_start)
     finally:
-        if ref_proc.poll() is None:
-            ref_proc.kill()
-        ref_proc.communicate()
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
 
 
-def phases(torch, np, card, dev, benches, ref_proc, t_start):
+def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
     from torch.func import vmap
 
     from rmt_tpu_torch.cases import ch4_case, dme_case
@@ -1276,25 +1563,32 @@ def phases(torch, np, card, dev, benches, ref_proc, t_start):
         b_ch4 = len(z["ch4_offsets"])
         t0_ch4 = float(z["ch4_t_base"]) + z["ch4_offsets"]
     ens_ch4 = prepare_n2_ensemble(mi_ch4, {"T0": t0_ch4}, device=dev)
+    with z_no_of(homo, WIDE_Z):
+        ens30 = prepare_n2_ensemble(
+            mi, {"T0": 523.0 + np.linspace(-5.0, 5.0, F32_WIDE_B)},
+            device=dev)
 
     def fused(e):
         return {mode: cuda_rhs.build_n2_fused(e.spec, accurate_rates=mode,
                                               ko_keys=e.ko_keys)
                 for mode in (False, "df32")}
 
-    rhs_fns, rhs_ch4 = fused(ens), fused(ens_ch4)
+    rhs_fns, rhs_ch4, rhs_30 = fused(ens), fused(ens_ch4), fused(ens30)
     t0 = time.perf_counter()
     block_src = (_build.CSRC / "block.cu").read_text()
     _build.compile_sources(
-        [("block", block_src), cuda_ns.build_job()]
+        [("block", block_src), cuda_ns.build_job(), cuda_ns.wide_build_job()]
         + [(f.kernel_name, f.source())
-           for f in (*rhs_fns.values(), *rhs_ch4.values())])
+           for f in (*rhs_fns.values(), *rhs_ch4.values(),
+                     *rhs_30.values())])
     say(f"build: {time.perf_counter() - t0:.1f} s (nvcc, all sources at "
         f"once, into {_build.build_dir()})")
     # registers, spills and static shared memory of every kernel the paths
     # launch (the block kernels at the two chemistries' m = 7 and m = 4)
     for label, path in (("block.cu", _build.library_path("block", block_src)),
                         ("ns.cu", _build.library_path(*cuda_ns.build_job())),
+                        ("ns_wide.cu",
+                         _build.library_path(*cuda_ns.wide_build_job())),
                         *((f"{f.kernel_name} ({chem})",
                            _build.library_path(f.kernel_name, f.source()))
                           for chem, fns in (("dme", rhs_fns),
@@ -1328,8 +1622,21 @@ def phases(torch, np, card, dev, benches, ref_proc, t_start):
     del J
     res["ns_fused_step"]["n1_shape"] = ns_n1_phase(
         torch, cuda_ns, tableau, n1_jacobians(torch, benches.n1, dev, gamma))
+    # the wide route at the f32_wide leg's Jacobian and first step
+    jac30 = vmap(homo.make_n2_colored_jacobian(ens30.spec),
+                 in_dims=(0, 0, ens30.axes, 0))
+    J30 = jac30(torch.full((F32_WIDE_B,), float(ens30.ts[0]), device=dev),
+                ens30.y0, ens30.params, ens30.d).contiguous()
+    h30 = torch.clamp(
+        0.05 / (gamma * torch.amax(torch.sum(torch.abs(J30), dim=-1), dim=-1)
+                + 1e-30), max=1e-3 * float(ens30.ts[-1] - ens30.ts[0]))
+    res["ns_fused_step_wide"] = ns_wide_phase(torch, np, cuda_ns, tableau,
+                                              J30, h30, dev)
+    del J30
     for k, v in (*res.items(),
-                 ("ns_fused_step (N1 shape)", res["ns_fused_step"]["n1_shape"])):
+                 ("ns_fused_step (N1 shape)", res["ns_fused_step"]["n1_shape"]),
+                 ("ns_fused_step_wide (n = 420)",
+                  res["ns_fused_step_wide"]["n420"])):
         lib = ("none" if v["library_ms"] is None
                else f"{v['library_ms']:.4f} ms")
         say(f"time {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} "
@@ -1368,8 +1675,18 @@ def phases(torch, np, card, dev, benches, ref_proc, t_start):
                           counts, dev, ref_n1)
     phase("microbatch", microbatch_phase, torch, np, mi,
           run_n2_ensemble_lockstep, dev)
+    # the steady models run in a child through seq and est (the host's
+    # work: one sequential Radau integration each)
+    steady_proc = start_steady_models()
+    children.append(steady_proc)
     phase("seq", seq_phase, torch, np, benches.seq, counts, dev, ref_n1)
     phase("est", est_phase, torch, np, benches.est, counts, dev)
+    wide = phase("f32_wide", f32_wide_phase, torch, np, homo, mi,
+                 run_n2_ensemble_lockstep, counts, dev)
+    by_path["f32_wide_f32x"], by_path["f32_wide_f32"] = wide["f32x"], \
+        wide["f32"]
+    by_path["m2"] = phase("models", models_phase, torch, np, benches.seq,
+                          counts, dev, steady_proc)
     say("phase walls (s): " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
 
@@ -1386,11 +1703,15 @@ def phases(torch, np, card, dev, benches, ref_proc, t_start):
                         "rmt_tpu/ops/pallas_rhs.py:340"),
         "ns_fused_step": ("rmt_tpu_torch/csrc/ns.cu",
                           "rmt_tpu/ops/pallas_ns.py:112"),
+        "ns_fused_step_wide": ("rmt_tpu_torch/csrc/ns_wide.cu",
+                               "rmt_tpu/ops/pallas_ns.py:112"),
     }
     # launches: the main paths' runs together (the two DME legs' timed
-    # runs and the N1 sweep); each path's own count rides along
+    # runs, the N1 sweep, both f32_wide legs and rmtExe M2); each path's
+    # own count rides along (the CH4 guard's too)
+    main_paths = ("f32x", "f32", "n1", "f32_wide_f32x", "f32_wide_f32", "m2")
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=sum(by_path[p][k] for p in ("f32x", "f32", "n1")),
+                    launches=sum(by_path[p][k] for p in main_paths),
                     launches_by_path={p: v[k] for p, v in by_path.items()},
                     **res[k])
                for k, (src, rep) in sources.items()]

@@ -1,17 +1,20 @@
-# Public API: rmtExe(modelInput) / rmtCom() (port of the N1/N2 slice of
-# rmt_tpu/api/rmt.py).
+# Public API: rmtExe(modelInput) / rmtCom() (port of the N1/N2 and
+# M0-M4, M7-M9 slices of rmt_tpu/api/rmt.py).
 #
 # Same dict-in / dataPack-out contract as the reference
 # (PyREMOT/rmt.py:21-92, PyREMOT/docs/rmtCore.py:63-127): modelInput
 # validated, model id dispatched, result wrapped as {"resModel": ...,
-# "comTime": ...}, with rmt_tpu's keys and value shapes. N1 and N2 run on
-# the sequential integrators of solvers/ (radau, dopri5, fixed.precorr3)
+# "comTime": ...}, with rmt_tpu's keys and value shapes. Every model runs
 # in config.default_float() on the CUDA card, or on the device the caller
-# names. Eager PyTorch compiles nothing, so there is no cache of built
-# programs. Every other model id of rmt_tpu raises NotImplementedError
-# until its port lands. display-result "True" plots the result after the
-# run through io/plot (matplotlib on the host), as rmt_tpu does;
-# RMT_TORCH_PROFILE=<dir> writes a torch.profiler trace of the call.
+# names: N1, N2 and the steady M0, M1, M4, M7, M8 and batch M3 on the
+# sequential integrators of solvers/ (radau, dopri5, fixed.precorr3), the
+# dynamic M2 and M9 on the lockstep integrator in block mode (B = 1, the
+# block kernels of ops/cuda_block.py on the card). Eager PyTorch compiles
+# nothing, so there is no cache of built programs. Every other model id
+# of rmt_tpu raises NotImplementedError until its port lands.
+# display-result "True" plots the result after the run through io/plot
+# (matplotlib on the host), as rmt_tpu does; RMT_TORCH_PROFILE=<dir>
+# writes a torch.profiler trace of the call.
 
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ import torch
 
 from .. import config
 from ..data.species import SPECIES, species_index
-from ..models import homo
-from ..solvers import dopri5, fixed, radau
+from ..models import batch, homo, pb, pf
+from ..solvers import dopri5, fixed, radau, stiff_ensemble
 from ..utils import roundNum
 
 ISO = homo.ISO_THERMAL
@@ -55,7 +58,7 @@ _MODEL_IDS = {
     "M13": "dynamic heterogenous packed bed, gas/solid operator splitting",
     "M14": "steady-state heterogenous packed bed, gas + lumped catalyst phase",
 }
-_PORTED = ("N1", "N2")
+_PORTED = ("N1", "N2", "M0", "M1", "M2", "M3", "M4", "M7", "M8", "M9")
 
 _SOLVER_SETTING = {
     "N1": {"zNo": 100},
@@ -468,6 +471,231 @@ def _run_n2(model_input, spec: homo.HomoSpec, opts, device, dtype):
 
 
 # ---------------------------------------------------------------------------
+# M0/M4 (plug flow), M1 (packed bed, molar-flow variables), M7/M8
+# (packed bed, concentration variables): steady profiles over z
+# ---------------------------------------------------------------------------
+
+def _steady_profile(rhs, y0, p, n_out, opts, context):
+    """(ys (n_var, n_out) numpy, z (n_out,) numpy) of a steady model over
+    the reactor length, on the integrator opts["ivp"] names."""
+    ts = torch.linspace(0.0, 1.0, n_out, dtype=y0.dtype,
+                        device=y0.device) * p["ReLe"]
+    ys, stats = _integrate(lambda t, y: rhs(t, y, p), y0, ts, opts)
+    _check_integration(stats, context)
+    return ys.T.cpu().numpy(), ts.cpu().numpy()
+
+
+def _xy_result(data_x, rows, labels, opts, x_label, y_label=""):
+    """XYList and dataList of rows over data_x, plotted when asked."""
+    xy_list = [[data_x, row] for row in rows]
+    data_list = [{"x": data_x, "y": xy[1], "leg": leg}
+                 for xy, leg in zip(xy_list, labels)]
+    if opts["display"]:
+        from ..io import plot as _plot
+
+        _plot.plot_xy_series(data_list, x_label, y_label)
+    return xy_list, data_list
+
+
+def _run_pf(model_input, opts, device, dtype):
+    spec = pf.build_spec(model_input)
+    p = pf.build_params(model_input, dtype=dtype, device=device)
+    ys, data_x = _steady_profile(pf.make_rhs(spec), pf.initial_state(spec, p),
+                                 p, spec.z_out, opts, "M0/M4")
+    xy_list, data_list = _xy_result(
+        data_x, ys, list(spec.comp_list) + ["Temperature"], opts,
+        "Reactor Length (m)")
+    return {"XYList": xy_list, "dataList": data_list}
+
+
+def _run_m1(model_input, opts, device, dtype):
+    spec = pb.build_spec(model_input)
+    p = pb.build_params(model_input, dtype=dtype, device=device)
+    ys, data_x = _steady_profile(pb.make_m1_rhs(spec),
+                                 pb.m1_initial_state(spec, p), p,
+                                 spec.z_out, opts, "M1")
+    n_comp = spec.n_comp
+    # molar flowrates -> mole fractions (reference pbReactor.py:286-303)
+    mo_fri = ys[:n_comp] / np.sum(ys[:n_comp], axis=0)
+    data_ys_all = np.concatenate([mo_fri, ys[n_comp:n_comp + 3]], axis=0)
+    ss_data_ys = np.concatenate([mo_fri, ys[n_comp + 1:n_comp + 2]], axis=0)
+    xy_list, data_list = _xy_result(
+        data_x, data_ys_all,
+        list(spec.comp_list) + ["Flux", "Temperature", "Pressure"], opts,
+        "Reactor Length (m)")
+    return {"dataYs": ss_data_ys, "XYList": xy_list, "dataList": data_list}
+
+
+def _run_m_conc_steady(model_input, opts, device, dtype, model_id):
+    spec = pb.build_spec(model_input)
+    p = pb.build_params(model_input, dtype=dtype, device=device)
+    if model_id == "M7":
+        rhs, y0 = pb.make_m3_rhs(spec), pb.m3_initial_state(spec, p)
+    else:
+        rhs, y0 = pb.make_m4_rhs(spec), pb.m4_initial_state(spec, p)
+    # output points: solverSetting M9.zNo (M7), S3.timesNo (M8)
+    n_out = 30 if model_id == "M7" else 25
+    ys, data_x = _steady_profile(rhs, y0, p, n_out, opts, model_id)
+    n_comp = spec.n_comp
+    mo_fri = ys[:n_comp] / np.sum(ys[:n_comp], axis=0)
+    data_ys = np.concatenate([mo_fri, ys[n_comp:n_comp + 1]], axis=0)
+    labels = list(spec.comp_list) + ["Temperature", "Pressure"]
+    if model_id == "M8":
+        labels.append("Velocity")
+    xy_list, data_list = _xy_result(data_x, data_ys, labels, opts,
+                                    "Reactor Length (m)")
+    return {"dataYs": data_ys, "XYList": xy_list, "dataList": data_list}
+
+
+# ---------------------------------------------------------------------------
+# M3: batch reactor
+# ---------------------------------------------------------------------------
+
+def _run_batch(model_input, opts, device, dtype):
+    spec = batch.build_spec(model_input)
+    p = batch.build_params(model_input, dtype=dtype, device=device)
+    rhs = batch.make_rhs(spec)
+    y0 = batch.initial_state(spec, p)
+    ts = (p["opT"] * torch.linspace(0.0, 1.0, spec.t_out, dtype=dtype,
+                                    device=device)).to(y0.dtype)
+    # rmt_tpu runs M3 on Radau whatever ivp says
+    ys, stats = radau.odeint(lambda t, y: rhs(t, y, p), y0, ts,
+                             rtol=opts["rtol"], atol=opts["atol"])
+    _check_integration(stats, "M3")
+    labels = list(spec.comp_list) + ([] if spec.iso_thermal
+                                     else ["Temperature"])
+    xy_list, data_list = _xy_result(
+        ts.cpu().numpy(), ys.T.cpu().numpy(), labels, opts, "Time (s)",
+        "Concentration (mol/m^3)")
+    return {"XYList": xy_list, "dataList": data_list}
+
+
+# ---------------------------------------------------------------------------
+# M2/M9: dynamic packed bed in dimensional concentration variables
+# ---------------------------------------------------------------------------
+
+def _resume_or(model_input, default_y0, expect_len, model_id):
+    """The initial state and time of a dynamic run: the default, or the
+    {"model", "t", "state"} checkpoint of modelInput["resume-state"] (as
+    every dynamic run returns it), on default_y0's device and dtype."""
+    resume = model_input.get("resume-state")
+    if resume is None:
+        return default_y0, 0.0
+    if resume.get("model") not in (None, model_id):
+        raise ValueError(
+            f"resume-state is for model {resume.get('model')!r}, not "
+            f"{model_id!r}")
+    y = torch.as_tensor(np.asarray(resume["state"], dtype=np.float64),
+                        dtype=default_y0.dtype,
+                        device=default_y0.device).reshape(-1)
+    if y.shape[0] != expect_len:
+        raise ValueError(
+            f"resume-state has {y.shape[0]} entries; this grid needs "
+            f"{expect_len}")
+    return y, float(resume.get("t", 0.0))
+
+
+def _m2_solve(spec, p, y_init, t_start, opts, model_id):
+    """(ys (tNo+1, n), ts, stats) of M2 or M9 from y_init at t_start over
+    the period opT: the lockstep integrator at B = 1 in block mode, its
+    blocks extracted from the dense colored Jacobian of the frozen-march
+    RHS, its stage solves the block kernels."""
+    from ..ops.jacobian import banded_coloring, batched_colored_jacobian
+
+    if model_id == "M9":
+        rhs = pb.make_m9_rhs(spec)
+        rhs_frozen = pb.make_m9_rhs(spec, frozen_march_jac=True)
+    else:
+        rhs = pb.make_m2_rhs(spec)
+        rhs_frozen = pb.make_m2_rhs(spec, frozen_pressure_jac=True)
+    var_no = spec.n_comp + 1
+    # the RHS reads no t, and takes any leading batch dimensions: every
+    # member and stage in one call
+    jac_x = batched_colored_jacobian(lambda x: rhs_frozen(None, x, p),
+                                     banded_coloring(var_no, spec.z_no))
+    y0 = y_init[None]
+    ts = (t_start + p["opT"] * torch.linspace(
+        0.0, 1.0, spec.t_no + 1, dtype=y0.dtype,
+        device=y0.device)).to(y0.dtype)
+    # attempt budget scales with the number of output intervals: the
+    # reference integrates each interval with a fresh LSODA budget
+    ys, stats = stiff_ensemble.odeint_ensemble(
+        lambda t, y: rhs(t, y, p), y0, ts, rtol=opts["rtol"],
+        atol=opts["atol"], jac=lambda t, y: jac_x(y),
+        max_steps=max(1024, 256 * spec.t_no), block=(var_no, spec.z_no),
+        f_stages=lambda ts3, Y: rhs(ts3, Y, p))
+    return ys[:, 0, :], ts, stats
+
+
+def _run_m2(model_input, opts, device, dtype, model_id="M2"):
+    sc = model_input.get("solver-config", {})
+    spec = pb.build_spec(
+        model_input,
+        z_no=int(sc.get("zNo", 100)),
+        t_no=int(sc.get("tNo", 10)),
+        times_no=int(sc.get("timesNo", 5)),
+    )
+    p = pb.build_params(model_input, dtype=dtype, device=device)
+    y_default = pb.m2_initial_state(spec, p)
+    y_init, t_start = _resume_or(model_input, y_default,
+                                 int(y_default.shape[0]), model_id)
+    ys, ts, stats = _m2_solve(spec, p, y_init, t_start, opts, model_id)
+    seg = int(stats.seg[0])
+    if seg != spec.t_no:
+        raise RuntimeError(
+            f"{model_id}: lockstep integrator exhausted its attempt budget "
+            f"at output segment {seg}/{spec.t_no}")
+    ys = ys.cpu().numpy()
+    t_bounds = ts.cpu().numpy()
+
+    n_comp = spec.n_comp
+    z_no = spec.z_no
+    data_xs = np.linspace(0, float(p["ReLe"]), z_no)
+    label_list = list(spec.comp_list) + ["Temperature"]
+
+    data_pack = []
+    data_packtime = np.zeros((n_comp + 1, spec.t_no, z_no))
+    for i in range(spec.t_no):
+        Y = ys[i + 1].reshape(n_comp + 1, z_no)
+        conc = Y[:n_comp]
+        mo_fri = conc / np.sum(conc, axis=0)
+        temp = Y[n_comp:n_comp + 1]
+        data_ys_all = np.concatenate([mo_fri, temp], axis=0)
+        data_pack.append({
+            "successStatus": True,
+            "dataTime": t_bounds[i + 1],
+            "dataYCons": conc,
+            "dataYTemp": temp,
+            "dataYs": data_ys_all,
+        })
+        data_packtime[:, i, :] = data_ys_all
+
+    # QUIRK: the reference returns only the XY series of the *last* state
+    # variable over time (pbReactor.py:806-841); dataPack is an extension
+    xy_list = [[data_xs, row] for row in data_packtime[-1]]
+    labels_t = [f"{label_list[-1]} at t={t_bounds[t + 1]}"
+                for t in range(spec.t_no)]
+    data_list = [{"x": data_xs, "y": xy[1], "leg": leg}
+                 for xy, leg in zip(xy_list, labels_t)]
+    if opts["display"]:
+        from ..io import plot as _plot
+
+        _plot.plot_xy_series(data_list, "Reactor Length (m)", "")
+    return {
+        "XYList": xy_list,
+        "dataList": data_list,
+        "dataPack": data_pack,
+        "dataPacktime": data_packtime,
+        "solverStats": _stats_dict(stats),
+        "checkpoint": {
+            "model": model_id,
+            "t": float(t_bounds[-1]),
+            "state": ys[-1].copy(),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
 
 def rmtExe(modelInput: Mapping[str, Any], device=None):
     """Check model input, then start computation (reference: rmt.py:21-80),
@@ -533,16 +761,28 @@ def _rmt_exe_inner(modelInput: Mapping[str, Any], device):
     opts = _solver_options(modelInput)
     device = config.resolve_device(device)
     dtype = config.default_float()
-    spec = homo.build_spec(modelInput)
-    run = _run_n1 if model_type == "N1" else _run_n2
-    res_model = run(modelInput, spec, opts, device, dtype)
-    if opts["display"]:
-        from ..io import plot as _plot
+    if model_type in ("N1", "N2"):
+        spec = homo.build_spec(modelInput)
+        run = _run_n1 if model_type == "N1" else _run_n2
+        res_model = run(modelInput, spec, opts, device, dtype)
+        if opts["display"]:
+            from ..io import plot as _plot
 
-        if model_type == "N1":
-            _plot.plot_results_steady_state(res_model)
-        else:
-            _plot.plot_results_dynamic(res_model, spec.t_no)
+            if model_type == "N1":
+                _plot.plot_results_steady_state(res_model)
+            else:
+                _plot.plot_results_dynamic(res_model, spec.t_no)
+    elif model_type in ("M0", "M4"):
+        res_model = _run_pf(modelInput, opts, device, dtype)
+    elif model_type == "M1":
+        res_model = _run_m1(modelInput, opts, device, dtype)
+    elif model_type in ("M2", "M9"):
+        res_model = _run_m2(modelInput, opts, device, dtype, model_type)
+    elif model_type == "M3":
+        res_model = _run_batch(modelInput, opts, device, dtype)
+    else:   # M7, M8
+        res_model = _run_m_conc_steady(modelInput, opts, device, dtype,
+                                       model_type)
 
     com_time = (timer() - tic) * 1000
     return {"resModel": res_model, "comTime": com_time}

@@ -99,7 +99,7 @@ def compile_sources(jobs) -> list[Path]:
 
 
 _KERNELS = ("factor_kernel", "apply_kernel", "real_kernel", "n2_rhs_kernel",
-            "ns_step_kernel")
+            "ns_step_kernel", "ns_wide_kernel", "ns_wide_rho_kernel")
 
 
 def compiler_report(lib: Path) -> list[tuple]:

@@ -8,6 +8,12 @@
 # the M P assembly, the Frobenius residual of the INPUT iterate (the
 # certificate's input), and five P(MP) products.
 #
+# Two routes, chosen up front from n alone (route): members of n <= 160
+# fit one block of csrc/ns.cu (geometry); wider ones run csrc/ns_wide.cu,
+# one block per (member, column panel) with the rows in slabs and a
+# device scratch for the M P panels, then a pass that adds the panels'
+# Frobenius sums in order (wide_geometry).
+#
 # A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 # twin. The two agree up to float32 summation order (the twin's products
 # are torch.matmul), so they are held to a tolerance, not bit for bit.
@@ -22,7 +28,8 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"ns_fused_step": 0}
+# one count a kernel: the one-block route and the wide route
+LAUNCHES = {"ns_fused_step": 0, "ns_fused_step_wide": 0}
 
 _f32 = torch.float32
 _vp = ctypes.c_void_p
@@ -34,6 +41,12 @@ MICRO_ROWS, MICRO_COLS, SLAB = 8, 4, 16
 MAX_PANEL_WIDTH = 48
 MAX_THREADS = 256
 MAX_SMEM_BYTES = 232_448
+# the widest member csrc/ns.cu takes in one block; wider ones take the
+# wide route
+ONE_BLOCK_MAX_N = 160
+# csrc/ns_wide.cu's constants: the panel width, the rows of a slab and the
+# threads of a block
+WIDE_PANEL_WIDTH, WIDE_SLAB_ROWS, WIDE_THREADS = 32, 64, 256
 
 
 class Geometry(NamedTuple):
@@ -54,7 +67,7 @@ def geometry(n: int) -> Geometry:
     columns, each as narrow as covers n; rows padded to whole slabs; a
     thread per 8 x 4 micro-tile. Raises ValueError when a member does not
     fit one block (more than 256 threads or 227 KB of shared memory: any
-    n > 160)."""
+    n > 160, which the wrapper routes to the wide kernel)."""
     if n <= 0:
         raise ValueError(f"ns_fused_step: n = {n}")
     panels = -(-n // MAX_PANEL_WIDTH)
@@ -76,10 +89,51 @@ def geometry(n: int) -> Geometry:
     return Geometry(n, width, panels, rows, tx, ty, threads, smem)
 
 
+class WideGeometry(NamedTuple):
+    """The launch geometry of csrc/ns_wide.cu for matrices of edge n."""
+    n: int
+    width: int        # columns of a panel
+    panels: int       # blocks a member: panels * width >= n
+    slab_rows: int    # rows of a slab
+    slabs: int        # row slabs a phase: slabs * slab_rows >= n
+    threads: int      # threads of a block
+    scratch_floats: int   # device scratch a member: M P (3 n^2) and the
+                          # panels' Frobenius sums (3 a panel)
+
+
+def route(n: int) -> str:
+    """The kernel that takes members of edge n: "one_block" (csrc/ns.cu)
+    up to ONE_BLOCK_MAX_N, "wide" (csrc/ns_wide.cu) above it."""
+    if n <= 0:
+        raise ValueError(f"ns_fused_step: n = {n}")
+    return "one_block" if n <= ONE_BLOCK_MAX_N else "wide"
+
+
+def wide_geometry(n: int) -> WideGeometry:
+    """Panels, row slabs and scratch of the wide route for n x n
+    matrices (any n > 0; the wrapper takes it for n > ONE_BLOCK_MAX_N)."""
+    if n <= 0:
+        raise ValueError(f"ns_fused_step: n = {n}")
+    panels = -(-n // WIDE_PANEL_WIDTH)
+    return WideGeometry(n, WIDE_PANEL_WIDTH, panels, WIDE_SLAB_ROWS,
+                        -(-n // WIDE_SLAB_ROWS), WIDE_THREADS,
+                        3 * n * n + 3 * panels)
+
+
 @functools.cache
 def _lib():
     """The kernel's library, built at first use (once a process)."""
     return bind(_build.load(*build_job()))
+
+
+@functools.cache
+def _wide_lib():
+    """The wide route's library, built at first use (once a process)."""
+    lib = _build.load(*wide_build_job())
+    lib.ns_wide_step_launch.argtypes = (
+        [_vp] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [_vp])
+    lib.ns_wide_step_launch.restype = ctypes.c_int
+    return lib
 
 
 def bind(lib):
@@ -96,6 +150,12 @@ def build_job():
     _build.compile_sources. Built with FFMA contraction on: the kernel is
     dense float32 products, held to its twin by a tolerance."""
     return ("ns", (_build.CSRC / "ns.cu").read_text(), _build.NVCC_FLAGS_FMA)
+
+
+def wide_build_job():
+    """(name, source, flags) of the wide route's library, as build_job."""
+    return ("ns_wide", (_build.CSRC / "ns_wide.cu").read_text(),
+            _build.NVCC_FLAGS_FMA)
 
 
 def ns_fused_step_twin(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i):
@@ -156,12 +216,16 @@ class Workspace:
     """Device buffers of a run of kernel steps, allocated once: two sets
     of output iterates to alternate between, so that a chain of steps
     allocates nothing. The set a step writes is the one its input does
-    not live in. The kernel needs no other device memory: a panel's M P
-    intermediates stay in shared memory."""
+    not live in. The one-block route needs no other device memory (a
+    panel's M P intermediates stay in shared memory); the wide route's
+    scratch (wide_geometry) is allocated here too."""
 
     def __init__(self, B, n, device):
         self.sets = [tuple(torch.empty((B, n, n), dtype=_f32, device=device)
                            for _ in range(3)) for _ in range(2)]
+        self.scratch = (torch.empty(B * wide_geometry(n).scratch_floats,
+                                    dtype=_f32, device=device)
+                        if route(n) == "wide" else None)
 
     def out_for(self, Pr):
         mine = self.sets[0][0].data_ptr()
@@ -176,8 +240,10 @@ def ns_fused_step(J, Pr, Pcr, Pci, h32, *, gamma, mu_r, mu_i, workspace=None,
     (Pr', Pcr', Pci', rho_pre), rho_pre (B,) the residual of the INPUT
     iterate. With a Workspace the outputs are its buffers (valid until
     the second next step through it); without, they are new tensors.
-    lib: another build of the kernel with the same C interface (bind),
-    for timing it beside this one; the default is csrc/ns.cu.
+    The route follows from n alone (route): csrc/ns.cu up to
+    ONE_BLOCK_MAX_N, csrc/ns_wide.cu above it.
+    lib: another build of the one-block kernel with the same C interface
+    (bind), for timing it beside this one; the default is csrc/ns.cu.
     """
     if J.device.type != "cuda":
         return ns_fused_step_twin(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i)
@@ -185,7 +251,8 @@ def ns_fused_step(J, Pr, Pcr, Pci, h32, *, gamma, mu_r, mu_i, workspace=None,
         raise ValueError(f"ns_fused_step: J shape {tuple(J.shape)} is not "
                          "(B, n, n)")
     B, n, _ = J.shape
-    geo = geometry(n)
+    wide = route(n) == "wide"
+    geo = wide_geometry(n) if wide else geometry(n)
     for t, shape in ((J, (B, n, n)), (Pr, (B, n, n)), (Pcr, (B, n, n)),
                      (Pci, (B, n, n)), (h32, (B,))):
         if t.device != J.device or t.dtype != _f32 or not t.is_contiguous():
@@ -206,9 +273,24 @@ def ns_fused_step(J, Pr, Pcr, Pci, h32, *, gamma, mu_r, mu_i, workspace=None,
     ins = {t.data_ptr() for t in (J, Pr, Pcr, Pci)}
     if any(o.data_ptr() in ins for o in outs):
         raise ValueError("ns_fused_step: an output buffer aliases an input")
+    rho = torch.empty((B,), dtype=_f32, device=J.device)
+    if wide:
+        # M P (B, 3, n, n), then the panels' sums (B, panels, 3)
+        scratch = workspace.scratch if workspace is not None else None
+        if scratch is None or scratch.numel() != B * geo.scratch_floats:
+            scratch = torch.empty(B * geo.scratch_floats, dtype=_f32,
+                                  device=J.device)
+        err = _wide_lib().ns_wide_step_launch(
+            J.data_ptr(), Pr.data_ptr(), Pcr.data_ptr(), Pci.data_ptr(),
+            h32.data_ptr(), *(o.data_ptr() for o in outs), rho.data_ptr(),
+            scratch.data_ptr(), scratch[B * 3 * n * n:].data_ptr(), B, n,
+            geo.panels, gamma, mu_r, mu_i,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "ns_fused_step (wide)")
+        LAUNCHES["ns_fused_step_wide"] += 1
+        return (*outs, rho)
     mats = (J, Pr, Pcr, Pci, *outs)
     vec_ok = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in mats)
-    rho = torch.empty((B,), dtype=_f32, device=J.device)
     err = (lib or _lib()).ns_fused_step_launch(
         J.data_ptr(), Pr.data_ptr(), Pcr.data_ptr(), Pci.data_ptr(),
         h32.data_ptr(), *(o.data_ptr() for o in outs), rho.data_ptr(), B, n,

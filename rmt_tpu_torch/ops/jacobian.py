@@ -1,6 +1,7 @@
 # Colored (sparse) Jacobians for method-of-lines RHS functions (port of
 # rmt_tpu/ops/jacobian.py, the banded block-bidiagonal part: the dense
-# matrix on its sparsity pattern, and the blocks gathered directly).
+# matrix on its sparsity pattern, of one member or of a batch, and the
+# blocks gathered directly).
 #
 # Backward-difference MoL couplings are block-bidiagonal in the axial node
 # index: output (v, z) depends on inputs (v', z) and (v', z-1). A
@@ -41,6 +42,25 @@ def colored_jacobian_from(rhs_flat, coloring):
         jv = vmap(lambda tangent: jvp(fun, (y,), (tangent,))[1])(V_y)
         mask_y = torch.as_tensor(mask, dtype=y.dtype, device=y.device)
         return jv[colors_t.to(y.device), :].T * mask_y
+
+    return jac
+
+
+def batched_colored_jacobian(fB, coloring):
+    """jac(x (B, n)) -> (B, n, n) for a BATCHED function of independent
+    members fB(x (B, n)) -> (B, n), from n_colors JVPs with tangents
+    broadcast across the batch (members never mix, so one tangent per
+    color serves every member)."""
+    colors, V, mask = coloring
+    colors_t = torch.as_tensor(colors)
+
+    def jac(x):
+        V_x = torch.as_tensor(V, dtype=x.dtype, device=x.device)
+        jv = vmap(lambda tangent: jvp(fB, (x,), (tangent.expand_as(x),))[1])(
+            V_x)                                        # (n_colors, B, n_out)
+        # J[b, out, in] = jv[colors[in], b, out] on the sparsity mask
+        mask_x = torch.as_tensor(mask, dtype=x.dtype, device=x.device)
+        return jv[colors_t.to(x.device)].permute(1, 2, 0) * mask_x
 
     return jac
 

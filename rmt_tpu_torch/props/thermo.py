@@ -1,5 +1,5 @@
 # Thermodynamic property functions on tensors (port of
-# rmt_tpu/props/thermo.py, the parts the N1 and N2 models read).
+# rmt_tpu/props/thermo.py, the parts the N1, N2 and M0-M9 models read).
 #
 # Coefficient tables are numpy float64 (data/species.py); each function
 # casts them to the dtype and device of its temperature argument, so an
@@ -37,6 +37,11 @@ def cp_mean(T2, idx: np.ndarray, T1=Tref):
 def cp_mix(mole_frac, cp_i):
     """Mixture Cp [kJ/kmol.K] as mole-fraction weighted dot product."""
     return torch.sum(mole_frac * cp_i, dim=-1)
+
+
+def volumetric_flowrate_ig(P, T, molar_flows):
+    """Total volumetric flowrate of an ideal gas [m^3/s]."""
+    return (R_CONST * T / P) * torch.sum(molar_flows, dim=-1)
 
 
 def density_ig(mw_mix, conc_total):

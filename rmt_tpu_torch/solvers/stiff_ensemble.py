@@ -19,11 +19,14 @@
 #     lower bidiagonal in the axial node, so both systems are solved
 #     exactly by the block kernels of ops/cuda_block.py: block_factor once
 #     per attempt, block_apply once per Newton sweep, block_apply_real
-#     once per attempt for the error estimate.
+#     once per attempt for the error estimate. The blocks come from
+#     jac_blocks, or are extracted from a dense jac
+#     (ops/block_solve.extract_bidiag_blocks).
 #
-# The Jacobian is refreshed once per chunk of j_every attempts. In
-# Newton-Schulz mode without a jac, it is the dense Jacobian of the
-# batched f by forward-mode JVPs, one tangent column per state entry.
+# The Jacobian is refreshed once per chunk of j_every attempts. Without a
+# jac (and, in block mode, without jac_blocks), it is the dense Jacobian
+# of the batched f by forward-mode JVPs, one tangent column per state
+# entry.
 #
 # Output: by default every step is clamped onto the next output boundary
 # and the boundary state is the accepted one. With dense_output=True the
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_block, cuda_ns
+from ..ops.block_solve import extract_bidiag_blocks
 from .radau import extrap_weights, radau_tableau
 
 _SAFETY = 0.9
@@ -152,9 +156,11 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     batched_jacobian); the float32 preconditioners get ns_refresh
     iterations after each Jacobian refresh and ns_step per attempt.
 
-    Block mode: jac_blocks(t, y) -> (Jd, Jl), each
-    (B, z_no, var_no, var_no): the block-bidiagonal Jacobian in the flat
-    state layout v*z_no + z, with block = (var_no, z_no).
+    Block mode (block = (var_no, z_no), the flat state layout
+    v*z_no + z): jac_blocks(t, y) -> (Jd, Jl), each
+    (B, z_no, var_no, var_no), the block-bidiagonal Jacobian; or, without
+    jac_blocks, the dense jac (default: batched_jacobian), whose blocks
+    are extracted at each refresh and whose row sums set the first step.
 
     f_stages / f_cheap_stages: optional all-stages evaluators
     (ts (B, 3), Y (B, 3, n)) -> (B, 3, n); the fused RHS kernel provides
@@ -178,13 +184,11 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     Bsz, n = y0.shape
     dtype, dev = y0.dtype, y0.device
     if block is not None:
-        if jac_blocks is None:
-            raise ValueError("block mode needs jac_blocks")
         var_no, z_no = block
         if var_no * z_no != n:
             raise ValueError(
                 f"block {block} does not tile the state size {n}")
-    elif jac is None:
+    if jac is None and jac_blocks is None:
         def jac(t, y):
             return batched_jacobian(f, t, y)
     if out_members is not None:
@@ -497,7 +501,7 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     span = ts[-1] - ts[0]
     # first step: ||h*gamma*J|| << 1 (so P0 = I is a valid Newton-Schulz
     # seed), from the row sums of J
-    if block is not None:
+    if block is not None and jac_blocks is not None:
         Jd0, Jl0 = (J.to(_f32) for J in jac_blocks(t0, y0))
         # the block row sums are the dense row sums of the bidiagonal J
         row_sums = torch.sum(torch.abs(Jd0), dim=-1) + torch.sum(
@@ -508,9 +512,13 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
         J0 = jac(t0, y0).to(_f32).contiguous()
         j_norm = torch.amax(torch.sum(torch.abs(J0), dim=-1),
                             dim=-1).to(dtype)
-        eyeB = torch.eye(n, dtype=_f32, device=dev).expand(
-            Bsz, n, n).contiguous()
-        P0 = (eyeB, eyeB.clone(), torch.zeros_like(eyeB))
+        if block is None:
+            eyeB = torch.eye(n, dtype=_f32, device=dev).expand(
+                Bsz, n, n).contiguous()
+            P0 = (eyeB, eyeB.clone(), torch.zeros_like(eyeB))
+        else:
+            # block mode carries no dense J: the first chunk refreshes
+            J0 = P0 = None
     h0 = torch.clamp(0.05 / (abs(gamma) * j_norm + 1e-30), max=1e-3 * span)
 
     zero_b = torch.zeros(Bsz, dtype=torch.int32, device=dev)
@@ -567,7 +575,11 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
             if not bool(alive(s)):
                 break
             # refresh the Jacobian blocks once per chunk, member-last
-            Jd, Jl = jac_blocks(s["t"], s["y"])
+            if jac_blocks is not None:
+                Jd, Jl = jac_blocks(s["t"], s["y"])
+            else:
+                Jd, Jl = extract_bidiag_blocks(
+                    jac(s["t"], s["y"]).to(_f32), var_no, z_no)
             lin = (to_member_last(Jd), to_member_last(Jl))
         else:
             fresh = ns_refresh_chunk(s)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """The port's sequential path on one CUDA card: rmtExe for N1 and N2 and
 the vmapped N2 ensemble (BASELINE config #4), all in float64 on the
-member-batched Radau integrator (rmt_tpu_torch.solvers.radau).
+member-batched Radau integrator (rmt_tpu_torch.solvers.radau); with
+--models, rmtExe for the packed-bed, plug-flow and batch models instead.
 
     python3 scripts/bench_torch_seq.py [--b B ...] [--skip-api]
+    python3 scripts/bench_torch_seq.py --models
 
   rmtExe N2  the DME case (zNo 20, n = 140, tNo 5, period 0.5, solver
              defaults rtol 1e-7 / atol 1e-10) at the first probe
@@ -27,10 +29,29 @@ member-batched Radau integrator (rmt_tpu_torch.solvers.radau).
              Newton sweeps are each closed by a device synchronisation
              (radau.odeint_batched's timings) for the wall's split.
 
+With --models (the inputs of rmt_tpu_torch/cases/pb_case.py, solver
+defaults, against models_ref.npz: rmt_tpu's rmtExe on the CPU in
+float64, scripts/gen_models_ref.py):
+
+  rmtExe M2  the default grid (zNo 100, tNo 10, n = 700: the lockstep
+             integrator at B = 1 in block mode, the block kernels at
+             m = 7, z = 100), a first and a warm call (attempts, peak
+             device memory of the warm call; dataPacktime and the final
+             state within 1e-5 relative, attempts within 1.25 times the
+             reference's), then an instrumented call whose Jacobian
+             refreshes (colored JVPs and block extraction), block-kernel
+             calls and RHS calls are each closed by a device
+             synchronisation, for the wall's split (the rest is the
+             host's integrator glue);
+  steady     rmtExe M0, M1, M3, M4, M7 and M8 (the sequential Radau
+             integrator on one state of 7 to 9 entries), a first and a
+             warm call each; XYList rows and dataYs within 1e-6 relative.
+
 Prints one line and one JSON line per part, with the card's name and
 power limit. Exits nonzero when a check fails (an unreached output time,
 a state that is not finite, an error over its bar: 1e-6 against
-bench_ref.npz, 1e-5 against scipy) or without a CUDA card.
+bench_ref.npz, 1e-5 against scipy, the bars above against
+models_ref.npz) or without a CUDA card.
 """
 
 import argparse
@@ -43,6 +64,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_NPZ = os.path.join(ROOT, "bench_ref.npz")
+MODELS_REF_NPZ = os.path.join(ROOT, "models_ref.npz")
+STEADY_MODELS = ("M0", "M1", "M3", "M4", "M7", "M8")
+BAR_STEADY = 1e-6    # against models_ref.npz (rmt_tpu, CPU float64)
+BAR_M2 = 1e-5
+ATTEMPTS_RATIO = 1.25
 BAR_REF = 1e-6       # against bench_ref.npz (CPU float64, rtol 1e-9)
 BAR_SCIPY = 1e-5     # against scipy's float64 Radau (rtol 1e-10)
 N1_PROBE = 0         # scripts/bench_torch_n1.PROBES[0]: 523 - 5 K
@@ -179,6 +205,128 @@ def ensemble(torch, b, device):
         ok=bool(rel.max() <= BAR_REF and unreached == 0 and finite))
 
 
+def models_ref():
+    with np.load(MODELS_REF_NPZ) as z:
+        return {k: z[k] for k in z.files}
+
+
+def max_rel(got, want):
+    got = np.asarray(got, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def steady_model(torch, device, model, ref, warm=True):
+    """rmtExe of a steady or batch model (a first call and, with warm, a
+    second) against models_ref.npz."""
+    from rmt_tpu_torch import rmtExe
+    from rmt_tpu_torch.cases.pb_case import model_input
+
+    first, res = timed(torch, lambda: rmtExe(model_input(model),
+                                             device=device))
+    if warm:
+        warm, res = timed(torch, lambda: rmtExe(model_input(model),
+                                                device=device))
+    res = res["resModel"]
+    key = model.lower()
+    xy = np.stack([np.asarray(r[1], np.float64) for r in res["XYList"]])
+    err = max_rel(xy, ref[f"{key}_xy"])
+    if f"{key}_data_ys" in ref:
+        err = max(err, max_rel(res["dataYs"], ref[f"{key}_data_ys"]))
+    return dict(part=f"rmtExe {model}", n_var=int(xy.shape[0]),
+                points=int(xy.shape[1]), first_s=first, warm_s=warm,
+                max_rel_err=err, bar=BAR_STEADY,
+                finite=bool(np.isfinite(xy).all()),
+                ok=bool(err <= BAR_STEADY and np.isfinite(xy).all()))
+
+
+def _timed_calls(torch, fn, acc, key):
+    """fn, with each call closed by device synchronisations and its wall
+    added to acc[key]."""
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    return wrapped
+
+
+def m2_split(torch, device):
+    """(wall, {part: seconds}) of an rmtExe M2 call whose Jacobian
+    refreshes, block-kernel calls and RHS calls are timed (each closed by
+    a device synchronisation)."""
+    from rmt_tpu_torch import rmtExe
+    from rmt_tpu_torch.cases.pb_case import m2_model_input
+    from rmt_tpu_torch.models import pb
+    from rmt_tpu_torch.ops import cuda_block, jacobian
+    from rmt_tpu_torch.solvers import stiff_ensemble
+
+    acc = {}
+    make_rhs, make_jac = pb.make_m2_rhs, jacobian.batched_colored_jacobian
+    saved = [(jacobian, "batched_colored_jacobian", make_jac),
+             (pb, "make_m2_rhs", make_rhs),
+             (stiff_ensemble, "extract_bidiag_blocks",
+              stiff_ensemble.extract_bidiag_blocks)]
+    saved += [(cuda_block, k, getattr(cuda_block, k))
+              for k in ("block_factor", "block_apply", "block_apply_real")]
+
+    def rhs_maker(spec, frozen_pressure_jac=False):
+        rhs = make_rhs(spec, frozen_pressure_jac)
+        # the frozen RHS runs inside the Jacobian's JVPs
+        return rhs if frozen_pressure_jac else _timed_calls(
+            torch, rhs, acc, "rhs")
+
+    try:
+        jacobian.batched_colored_jacobian = lambda *a: _timed_calls(
+            torch, make_jac(*a), acc, "jacobian")
+        pb.make_m2_rhs = rhs_maker
+        stiff_ensemble.extract_bidiag_blocks = _timed_calls(
+            torch, saved[2][2], acc, "jacobian")
+        for mod, k, fn in saved[3:]:
+            setattr(mod, k, _timed_calls(torch, fn, acc, "block kernels"))
+        wall, _ = timed(torch, lambda: rmtExe(m2_model_input(),
+                                              device=device))
+    finally:
+        for mod, k, fn in saved:
+            setattr(mod, k, fn)
+    acc["host"] = wall - sum(acc.values())
+    return wall, acc
+
+
+def rmtexe_m2(torch, device, ref, split=True):
+    """rmtExe M2 at the default grid, a first and a warm call (and, with
+    split, the instrumented one), against models_ref.npz."""
+    from rmt_tpu_torch import rmtExe
+    from rmt_tpu_torch.cases.pb_case import m2_model_input
+    from rmt_tpu_torch.ops import cuda_block
+
+    first, _ = timed(torch, lambda: rmtExe(m2_model_input(), device=device))
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cuda_block.LAUNCHES)
+    warm, res = timed(torch, lambda: rmtExe(m2_model_input(), device=device))
+    launches = {k: v - before[k] for k, v in cuda_block.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = res["resModel"]
+    st = res["solverStats"]
+    attempts = st["n_accepted"][0] + st["n_rejected"][0]
+    ref_att = int(ref["m2_attempts"].sum())
+    err = max(max_rel(res["dataPacktime"], ref["m2_packtime"]),
+              max_rel(res["checkpoint"]["state"], ref["m2_state"]))
+    out = dict(part="rmtExe M2", n=int(ref["m2_state"].size), first_s=first,
+               warm_s=warm, attempts=attempts, ref_attempts=ref_att,
+               jacobian_refreshes=st["n_jev"] - 1, launches=launches,
+               peak_gib=peak, max_rel_err=err, bar=BAR_M2,
+               finite=bool(np.isfinite(res["dataPacktime"]).all()))
+    if split:
+        out["split_wall_s"], out["split_s"] = m2_split(torch, device)
+    out["ok"] = bool(err <= BAR_M2 and out["finite"]
+                     and ref_att / ATTEMPTS_RATIO <= attempts
+                     <= ATTEMPTS_RATIO * ref_att)
+    return out
+
+
 def main():
     import torch
 
@@ -189,6 +337,8 @@ def main():
     ap.add_argument("--b", type=int, nargs="*", default=[4096])
     ap.add_argument("--skip-api", action="store_true",
                     help="only the ensemble")
+    ap.add_argument("--models", action="store_true",
+                    help="only rmtExe M2 and the steady and batch models")
     args = ap.parse_args()
     sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
     import rmt_tpu_torch  # noqa: F401 (its import turns TF32 off: header)
@@ -199,7 +349,11 @@ def main():
           f"{torch.backends.cuda.preferred_linalg_library()}", flush=True)
     device = torch.device("cuda:0")
     parts = []
-    if args.skip_api:
+    if args.models:
+        ref = models_ref()
+        parts.append(rmtexe_m2(torch, device, ref))
+        parts += [steady_model(torch, device, m, ref) for m in STEADY_MODELS]
+    elif args.skip_api:
         parts += [ensemble(torch, b, device) for b in args.b]
     else:
         proc = start_n1_reference()

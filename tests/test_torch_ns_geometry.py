@@ -1,9 +1,10 @@
-# The launch geometry of the Newton-Schulz kernel (rmt_tpu_torch/csrc/ns.cu,
-# chosen by ops/cuda_ns.geometry) and the panel decomposition the kernel
-# follows: the update splits into independent column panels, and rho is
-# the sum of per-panel Frobenius partial sums added in panel order. A
-# plain float32 version in that order is held here to the port's twin and
-# to rmt_tpu's Pallas kernel (interpret mode); the CUDA kernel is held to
+# The launch geometry of the Newton-Schulz kernels (rmt_tpu_torch/csrc/ns.cu,
+# chosen by ops/cuda_ns.geometry, and csrc/ns_wide.cu for n > 160, chosen
+# by ops/cuda_ns.wide_geometry) and the panel decomposition they follow:
+# the update splits into independent column panels, and rho is the sum of
+# per-panel Frobenius partial sums added in panel order. Plain float32
+# versions in each kernel's order are held here to the port's twin and to
+# rmt_tpu's Pallas kernel (interpret mode); the CUDA kernels are held to
 # the twin on the card by chip_smoke.py and scripts/kernel_time.py.
 
 import jax.numpy as jnp
@@ -45,10 +46,37 @@ def test_geometry(n):
     assert geo.smem_bytes == want <= 232_448
 
 
+# n -> (panels, row slabs) of the wide route (32 columns, 64 rows)
+WIDE = {161: (6, 3), 200: (7, 4), 210: (7, 4), 420: (14, 7)}
+
+
 @pytest.mark.parametrize("n", [0, 161, 200])
 def test_geometry_refuses_what_does_not_fit(n):
+    """n = 0 is refused by both routes. A member wider than 160 does not
+    fit one block of csrc/ns.cu; the wrapper routes it, from n alone, to
+    csrc/ns_wide.cu, whose geometry holds any n."""
     with pytest.raises(ValueError, match="ns_fused_step"):
         cuda_ns.geometry(n)
+    if n == 0:
+        for fn in (cuda_ns.route, cuda_ns.wide_geometry):
+            with pytest.raises(ValueError, match="ns_fused_step"):
+                fn(n)
+        return
+    assert cuda_ns.route(n) == "wide"
+    geo = cuda_ns.wide_geometry(n)
+    assert (geo.panels, geo.slabs) == WIDE[n]
+    assert geo.panels * geo.width >= n > (geo.panels - 1) * geo.width
+    assert geo.slabs * geo.slab_rows >= n > (geo.slabs - 1) * geo.slab_rows
+    assert (geo.width, geo.slab_rows, geo.threads) == (32, 64, 256)
+    assert geo.scratch_floats == 3 * n * n + 3 * geo.panels
+
+
+def test_route_boundary():
+    """Every width up to 160 keeps the one-block kernel; 161 and above
+    take the wide route."""
+    assert all(cuda_ns.route(n) == "one_block" for n in range(1, 161))
+    cuda_ns.geometry(160)
+    assert all(cuda_ns.route(n) == "wide" for n in (161, 210, 420, 2000))
 
 
 def _panel_step(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i):
@@ -105,6 +133,73 @@ def test_panel_order_matches_twin_and_pallas(n):
     tests/test_pallas_ns.py of rmt_tpu's kernel."""
     J, Pr, Pcr, Pci, h32 = _setup(n)
     got = _panel_step(J, Pr, Pcr, Pci, h32, *EIG.values())
+    twin = cuda_ns.ns_fused_step_twin(J, Pr, Pcr, Pci, h32, *EIG.values())
+    for g, w, name in zip(got[:3], twin[:3], ("Pr", "Pcr", "Pci")):
+        err = float(((g.double() - w.double()).abs()
+                     / (1.0 + w.double().abs())).max())
+        assert err <= 1e-6, (name, err)
+    rho_rel = float(((got[3] - twin[3]).abs() / twin[3]).max())
+    assert rho_rel <= 1e-6
+    want = j_step(*(jnp.asarray(t.numpy()) for t in (J, Pr, Pcr, Pci, h32)),
+                  **EIG, interpret=True)
+    for g, w, name in zip(got, want, ("Pr", "Pcr", "Pci", "rho")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5, err_msg=name)
+
+
+def _wide_step(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i):
+    """One Newton-Schulz step in the order of csrc/ns_wide.cu: for each
+    column panel of cuda_ns.wide_geometry, row slab by row slab, the three
+    MP rows from J's rows and the P panels and their Frobenius sums; then,
+    slab by slab, the P' rows from P's rows and the MP panels; the
+    panels' sums added in panel order. Plain float32 torch.matmul."""
+    n = J.shape[-1]
+    geo = cuda_ns.wide_geometry(n)
+    h = h32[:, None, None]
+    g, mr, mi = gamma * h, mu_r * h, mu_i * h
+    eye = torch.eye(n, dtype=J.dtype)
+    outs = [torch.empty_like(Pr) for _ in range(3)]
+    mp = [torch.empty_like(Pr) for _ in range(3)]
+    sums = torch.zeros((J.shape[0], geo.panels, 3), dtype=J.dtype)
+    for p in range(geo.panels):
+        jp = slice(p * geo.width, min((p + 1) * geo.width, n))
+        for s in range(geo.slabs):
+            ir = slice(s * geo.slab_rows, min((s + 1) * geo.slab_rows, n))
+            jpr, jpcr, jpci = (J[:, ir] @ P[..., jp] for P in (Pr, Pcr, Pci))
+            mpr = Pr[:, ir, jp] - g * jpr
+            mpcr = Pcr[:, ir, jp] - (mr * jpcr - mi * jpci)
+            mpci = Pci[:, ir, jp] - (mr * jpci + mi * jpcr)
+            dr, dc = eye[ir, jp] - mpr, eye[ir, jp] - mpcr
+            sums[:, p] += torch.stack([torch.sum(dr * dr, dim=(-1, -2)),
+                                       torch.sum(dc * dc, dim=(-1, -2)),
+                                       torch.sum(mpci * mpci, dim=(-1, -2))],
+                                      dim=-1)
+            for buf, val in zip(mp, (mpr, mpcr, mpci)):
+                buf[:, ir, jp] = val
+        for s in range(geo.slabs):
+            ir = slice(s * geo.slab_rows, min((s + 1) * geo.slab_rows, n))
+            a_r, a_cr, a_ci = Pr[:, ir], Pcr[:, ir], Pci[:, ir]
+            m_r, m_cr, m_ci = (m[..., jp] for m in mp)
+            outs[0][:, ir, jp] = 2.0 * Pr[:, ir, jp] - a_r @ m_r
+            outs[1][:, ir, jp] = 2.0 * Pcr[:, ir, jp] - (a_cr @ m_cr
+                                                         - a_ci @ m_ci)
+            outs[2][:, ir, jp] = 2.0 * Pci[:, ir, jp] - (a_ci @ m_cr
+                                                         + a_cr @ m_ci)
+    s_r, s_c, s_i = torch.zeros(3, J.shape[0], dtype=J.dtype)
+    for p in range(geo.panels):
+        s_r, s_c, s_i = s_r + sums[:, p, 0], s_c + sums[:, p, 1], \
+            s_i + sums[:, p, 2]
+    rho = torch.maximum(torch.sqrt(s_r / n), torch.sqrt((s_c + s_i) / n))
+    return (*outs, rho)
+
+
+@pytest.mark.parametrize("n", [161, 200])
+def test_wide_order_matches_twin_and_pallas(n):
+    """The wide route's panel-and-slab order computes the same step:
+    within 1e-6 of the twin and within the 2e-5 bar of rmt_tpu's kernel
+    (interpret mode), which takes the whole (1, n, n) member at any n."""
+    J, Pr, Pcr, Pci, h32 = _setup(n)
+    got = _wide_step(J, Pr, Pcr, Pci, h32, *EIG.values())
     twin = cuda_ns.ns_fused_step_twin(J, Pr, Pcr, Pci, h32, *EIG.values())
     for g, w, name in zip(got[:3], twin[:3], ("Pr", "Pcr", "Pci")):
         err = float(((g.double() - w.double()).abs()

@@ -206,13 +206,18 @@ def test_ns_mode_rescues_a_diverged_preconditioner():
 
 
 def test_mode_arguments_are_checked():
-    """Block mode needs its blocks, and blocks that tile the state; in
-    Newton-Schulz mode a missing jac is the default dense Jacobian of f
-    (tests/test_torch_dense_output.py holds it), not an error."""
+    """Block mode needs blocks that tile the state; without jac_blocks it
+    extracts them from the dense jac, and without either from the default
+    dense Jacobian of f (here dy/dt = y: y0 exp(t)), as in Newton-Schulz
+    mode (tests/test_torch_dense_output.py holds that default)."""
     A, y0, ts = _stiff_linear()
     f = lambda t, y: y
-    with pytest.raises(ValueError, match="jac_blocks"):
-        t_se.odeint_ensemble(f, torch.as_tensor(y0), ts, block=(3, 4))
+    ys, st = t_se.odeint_ensemble(f, torch.as_tensor(y0), ts, block=(3, 4),
+                                  rtol=1e-8, atol=1e-12)
+    assert bool((st.seg == 2).all())
+    np.testing.assert_allclose(
+        ys.numpy(), y0[None] * np.exp(np.asarray(ts))[:, None, None],
+        rtol=1e-6)
     with pytest.raises(ValueError, match="does not tile"):
         t_se.odeint_ensemble(f, torch.as_tensor(y0), ts, block=(5, 3),
                              jac_blocks=lambda t, y: None)
