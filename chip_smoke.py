@@ -32,9 +32,12 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      products against cuBLAS) is held to 2e-5, and to a float64
      evaluation, at n = 140, 24, 30, 80 and 100; its wide route
      (csrc/ns_wide.cu, the members wider than 160) to 2e-5 at n = 161,
-     200, 210 and 420, bit for bit on a repeat, and at the f32_wide
-     phase's shape (B = 256, n = 210, J the zNo-30 DME Jacobians) also to
-     a float64 evaluation, timed there and at n = 420 (B = 64); it is
+     200, 210, 420, 301, 1000 and 1584 (its limit), at a ragged B = 100
+     (n = 210) and on operands not 16-byte aligned (n = 210, 420), bit
+     for bit on a repeat, and at the f32_wide phase's shape (B = 256,
+     n = 210, J the zNo-30 DME Jacobians) also to a float64 evaluation,
+     timed there and at n = 420 (B = 64), its geometry and resident
+     blocks recorded; it is
      also held to 2e-5 at the N1 shapes (B = 4096; n = 8, and n = 7
      of the iso-thermal process; J the N1 Jacobians at the sweep's inlet)
      and timed at n = 8 beside its twin, three torch.bmm and its bound;
@@ -696,14 +699,23 @@ def random_stiff(torch, np, rng, Bs, ns, dev):
 
 def ns_wide_phase(torch, np, cuda_ns, tableau, J, h0, dev):
     """ns_fused_step's wide route (members wider than 160, csrc/ns_wide.cu)
-    against its twin: at n = 161, 200, 210 and 420 on random stiff
-    members, then at the f32_wide phase's shape (J the zNo-30 DME
-    Jacobians at the sweep's inlet, h and P as ns_operands makes them)
-    also against float64, twice for the same bits; timed there and at
-    n = 420 (B = 64). Returns its record."""
+    against its twin: at n = 161, 200, 210, 420, 301, 1000 and its limit
+    on random stiff members, at n = 210 also for a ragged B = 100, at
+    n = 210 and 420 also on operands 4 bytes off 16-byte alignment; then
+    at the f32_wide phase's shape (J the zNo-30 DME Jacobians at the
+    sweep's inlet, h and P as ns_operands makes them) also against
+    float64, twice for the same bits; timed there and at n = 420
+    (B = 64). Returns its record, with the geometry at n = 210 and 420
+    and its resident blocks."""
     eig = ns_eig(tableau)
     rng = np.random.default_rng(SEED)
-    for Bs, ns in ((3, 161), (3, 200), (3, 210), (2, 420)):
+    # the widths of the tests (161, 200), zNo 30 and 60 (210, 420), then an
+    # odd n of 24-column panels, 8-column panels with slabs of 4 (1000) and
+    # the route's limit (4-column panels); the ragged B = 100 at n = 210.
+    # n % 4 == 0 on 16-byte aligned operands takes the tensor-map copies,
+    # the rest cp.async
+    for Bs, ns in ((3, 161), (3, 200), (3, 210), (2, 420), (2, 301),
+                   (1, 1000), (1, cuda_ns.WIDE_MAX_N), (RAGGED_B, 210)):
         check(cuda_ns.route(ns) == "wide", f"n = {ns} is not routed wide")
         Js, hs = random_stiff(torch, np, rng, Bs, ns, dev)
         Ps = cuda_ns.ns_cold_start(Js, hs, **eig)
@@ -712,8 +724,26 @@ def ns_wide_phase(torch, np, cuda_ns, tableau, J, h0, dev):
         e_s = max(ns_scaled(a, b) for a, b in zip(g_s, w_s))
         say(f"ns_fused_step (wide): n = {ns}, B = {Bs}: {e_s:.3e} (bar 2e-5) "
             f"({cuda_ns.wide_geometry(ns)})")
-        check(e_s <= 2e-5, f"ns_fused_step (wide) at n = {ns} differs by "
-              f"{e_s}")
+        check(e_s <= 2e-5, f"ns_fused_step (wide) at n = {ns}, B = {Bs} "
+              f"differs by {e_s}")
+        if ns in (210, 420) and Bs != RAGGED_B:
+            # J and P 4 bytes off 16-byte alignment: 4-byte cp.async copies
+            Jm, Pm = misaligned(torch, Js), [misaligned(torch, p) for p in Ps]
+            g_m = cuda_ns.ns_fused_step(Jm, *Pm, hs, **eig)
+            e_m = max(ns_scaled(a, b) for a, b in zip(g_m, w_s))
+            say(f"ns_fused_step (wide): n = {ns}, B = {Bs}, J and P not "
+                f"16-byte aligned: {e_m:.3e} (bar 2e-5)")
+            check(e_m <= 2e-5, f"ns_fused_step (wide) at n = {ns} on "
+                  f"misaligned operands differs by {e_m}")
+    # the chosen geometries and the blocks resident on an SM
+    geometry = {}
+    for ns in (210, 420):
+        geo = cuda_ns.wide_geometry(ns)
+        geometry[ns] = dict(geo._asdict(),
+                            blocks_per_sm=cuda_ns.wide_blocks_per_sm(geo))
+        say(f"ns_fused_step (wide): n = {ns}: {geometry[ns]}")
+        check(geometry[ns]["blocks_per_sm"] >= 1,
+              f"ns_fused_step (wide) at n = {ns}: no block fits an SM")
     Bn, n, _ = J.shape
     h, P = ns_operands(torch, cuda_ns, eig, J, h0)
     ws = cuda_ns.Workspace(Bn, n, dev)
@@ -746,8 +776,9 @@ def ns_wide_phase(torch, np, cuda_ns, tableau, J, h0, dev):
     check(err_k <= 2.0 * err_p, f"ns_fused_step (wide) float64 error "
           f"{err_k} over twice the plain version's {err_p}")
     check(same, "ns_fused_step (wide) is not reproducible")
-    res = dict(B=Bn, n=n, **ns_times(torch, cuda_ns, eig, J, P, h, want, ws,
-                                     abs_tw, host_calls=5))
+    res = dict(B=Bn, n=n, geometry=geometry,
+               **ns_times(torch, cuda_ns, eig, J, P, h, want, ws, abs_tw,
+                          host_calls=5))
     J4, h4 = random_stiff(torch, np, rng, 64, 420, dev)
     P4 = cuda_ns.ns_cold_start(J4, h4, **eig)
     for _ in range(3):

@@ -1,6 +1,6 @@
 # Fused Newton-Schulz preconditioner update (port of
-# rmt_tpu/ops/pallas_ns.py): the wrapper of the CUDA kernel in csrc/ns.cu
-# beside its plain-PyTorch twin.
+# rmt_tpu/ops/pallas_ns.py): the wrapper of the CUDA kernels in csrc/ns.cu
+# and csrc/ns_wide.cu beside their plain-PyTorch twin.
 #
 # The lockstep integrator keeps approximate inverses Pr ~ (I - h*gamma*J)^-1
 # and Pcr + i Pci ~ (I - h*mu*J)^-1 per member and refreshes them once per
@@ -9,10 +9,11 @@
 # certificate's input), and five P(MP) products.
 #
 # Two routes, chosen up front from n alone (route): members of n <= 160
-# fit one block of csrc/ns.cu (geometry); wider ones run csrc/ns_wide.cu,
-# one block per (member, column panel) with the rows in slabs and a
-# device scratch for the M P panels, then a pass that adds the panels'
-# Frobenius sums in order (wide_geometry).
+# fit one block of csrc/ns.cu (geometry); wider ones run csrc/ns_wide.cu
+# (wide_geometry), whose resident blocks walk (member, column panel)
+# pairs, each keeping its panel's M P in shared memory, then a pass that
+# adds the panels' Frobenius sums in order. Neither needs device scratch
+# beyond those per-panel sums.
 #
 # A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 # twin. The two agree up to float32 summation order (the twin's products
@@ -44,9 +45,13 @@ MAX_SMEM_BYTES = 232_448
 # the widest member csrc/ns.cu takes in one block; wider ones take the
 # wide route
 ONE_BLOCK_MAX_N = 160
-# csrc/ns_wide.cu's constants: the panel width, the rows of a slab and the
-# threads of a block
-WIDE_PANEL_WIDTH, WIDE_SLAB_ROWS, WIDE_THREADS = 32, 64, 256
+# csrc/ns_wide.cu's slab depths, deepest first (each 4 more than a
+# multiple of 8 floats, so that 8 consecutive slab rows start in different
+# banks); the widest member it takes
+WIDE_DEPTHS = (20, 12, 4)
+# shared bytes before the panels (kHead: the slab buffers' barriers)
+WIDE_HEAD_BYTES = 128
+WIDE_MAX_N = 1584
 
 
 class Geometry(NamedTuple):
@@ -92,13 +97,17 @@ def geometry(n: int) -> Geometry:
 class WideGeometry(NamedTuple):
     """The launch geometry of csrc/ns_wide.cu for matrices of edge n."""
     n: int
-    width: int        # columns of a panel
-    panels: int       # blocks a member: panels * width >= n
-    slab_rows: int    # rows of a slab
-    slabs: int        # row slabs a phase: slabs * slab_rows >= n
-    threads: int      # threads of a block
-    scratch_floats: int   # device scratch a member: M P (3 n^2) and the
-                          # panels' Frobenius sums (3 a panel)
+    width: int        # columns of a panel, 4 * tx
+    panels: int       # pairs a member: panels * width >= n
+    slab_rows: int    # rows of every slab: n rounded up to 8, 8 * ty
+    depth: int        # k depth of a staged slab
+    tx: int           # threads across a panel
+    ty: int           # threads down the rows
+    threads: int      # tx * ty rounded up to whole warps
+    smem_bytes: int   # dynamic shared memory of a block
+    copy_bytes: int   # widest copy n's rows allow: 16, 8 or 4
+    scratch_floats: int   # device scratch a member: the panels' Frobenius
+                          # sums (3 a panel)
 
 
 def route(n: int) -> str:
@@ -109,15 +118,46 @@ def route(n: int) -> str:
     return "one_block" if n <= ONE_BLOCK_MAX_N else "wide"
 
 
+def _wide_smem(rows, width, depth, threads):
+    """Shared bytes of csrc/ns_wide.cu: the barriers, the three P / M P
+    panels, two buffers of three A slabs (depth floats a row) and the
+    per-warp sums."""
+    # a slab buffer holds the tensor maps' boxes: at most 256 rows each,
+    # a multiple of 8
+    boxes = -(-rows // 256)
+    slab_rows = boxes * MICRO_ROWS * -(-rows // (MICRO_ROWS * boxes))
+    return WIDE_HEAD_BYTES + 4 * (3 * rows * width + 6 * slab_rows * depth
+                                  + 3 * (threads // 32))
+
+
 def wide_geometry(n: int) -> WideGeometry:
-    """Panels, row slabs and scratch of the wide route for n x n
-    matrices (any n > 0; the wrapper takes it for n > ONE_BLOCK_MAX_N)."""
+    """Panel width and count, rows, slab depth, threads, shared-memory
+    bytes, copy width and scratch of the wide route for n x n matrices
+    (the wrapper takes it for n > ONE_BLOCK_MAX_N). All n rows go in one
+    slab, a thread per 8 x 4 micro-tile; the panels are the fewest whose
+    threads fit a block (at most MAX_THREADS), each as narrow as covers n;
+    the slab depth is the deepest of WIDE_DEPTHS whose shared memory then
+    fits, else the panels narrow. Raises ValueError above WIDE_MAX_N."""
     if n <= 0:
         raise ValueError(f"ns_fused_step: n = {n}")
-    panels = -(-n // WIDE_PANEL_WIDTH)
-    return WideGeometry(n, WIDE_PANEL_WIDTH, panels, WIDE_SLAB_ROWS,
-                        -(-n // WIDE_SLAB_ROWS), WIDE_THREADS,
-                        3 * n * n + 3 * panels)
+    ty = -(-n // MICRO_ROWS)
+    rows = MICRO_ROWS * ty
+    for most in range(MAX_THREADS // ty, 0, -1):
+        panels = -(-n // (MICRO_COLS * most))
+        tx = -(-n // (MICRO_COLS * panels))
+        threads = 32 * -(-(tx * ty) // 32)
+        width = MICRO_COLS * tx
+        for depth in WIDE_DEPTHS:
+            smem = _wide_smem(rows, width, depth, threads)
+            if smem <= MAX_SMEM_BYTES:
+                copy = 16 if n % 4 == 0 else 8 if n % 2 == 0 else 4
+                return WideGeometry(n, width, panels, rows, depth, tx, ty,
+                                    threads, smem, copy, 3 * panels)
+    raise ValueError(
+        f"ns_fused_step: n = {n} is wider than the wide route's limit "
+        f"WIDE_MAX_N = {WIDE_MAX_N} (a panel of 4 columns over all rows "
+        f"must fit {MAX_THREADS} threads and {MAX_SMEM_BYTES} bytes of "
+        f"shared memory)")
 
 
 @functools.cache
@@ -131,9 +171,17 @@ def _wide_lib():
     """The wide route's library, built at first use (once a process)."""
     lib = _build.load(*wide_build_job())
     lib.ns_wide_step_launch.argtypes = (
-        [_vp] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [_vp])
+        [_vp] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3 + [_vp])
     lib.ns_wide_step_launch.restype = ctypes.c_int
+    lib.ns_wide_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.ns_wide_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def wide_blocks_per_sm(geo: WideGeometry) -> int:
+    """Resident blocks of csrc/ns_wide.cu per SM at geo, from CUDA's
+    occupancy calculator (builds the library at first use)."""
+    return _wide_lib().ns_wide_blocks_per_sm(geo.threads, geo.smem_bytes)
 
 
 def bind(lib):
@@ -216,9 +264,9 @@ class Workspace:
     """Device buffers of a run of kernel steps, allocated once: two sets
     of output iterates to alternate between, so that a chain of steps
     allocates nothing. The set a step writes is the one its input does
-    not live in. The one-block route needs no other device memory (a
-    panel's M P intermediates stay in shared memory); the wide route's
-    scratch (wide_geometry) is allocated here too."""
+    not live in. Both routes keep a panel's M P intermediates in shared
+    memory; the wide route's per-panel Frobenius sums (wide_geometry's
+    scratch_floats a member) are allocated here too."""
 
     def __init__(self, B, n, device):
         self.sets = [tuple(torch.empty((B, n, n), dtype=_f32, device=device)
@@ -274,22 +322,26 @@ def ns_fused_step(J, Pr, Pcr, Pci, h32, *, gamma, mu_r, mu_i, workspace=None,
     if any(o.data_ptr() in ins for o in outs):
         raise ValueError("ns_fused_step: an output buffer aliases an input")
     rho = torch.empty((B,), dtype=_f32, device=J.device)
+    mats = (J, Pr, Pcr, Pci, *outs)
     if wide:
-        # M P (B, 3, n, n), then the panels' sums (B, panels, 3)
+        # the panels' Frobenius sums (B, panels, 3)
         scratch = workspace.scratch if workspace is not None else None
         if scratch is None or scratch.numel() != B * geo.scratch_floats:
             scratch = torch.empty(B * geo.scratch_floats, dtype=_f32,
                                   device=J.device)
+        # the widest copy n's rows and every matrix's address allow
+        copy = geo.copy_bytes
+        while any(t.data_ptr() % copy for t in mats):
+            copy //= 2
         err = _wide_lib().ns_wide_step_launch(
             J.data_ptr(), Pr.data_ptr(), Pcr.data_ptr(), Pci.data_ptr(),
             h32.data_ptr(), *(o.data_ptr() for o in outs), rho.data_ptr(),
-            scratch.data_ptr(), scratch[B * 3 * n * n:].data_ptr(), B, n,
-            geo.panels, gamma, mu_r, mu_i,
+            scratch.data_ptr(), B, n, geo.tx, geo.ty, geo.depth, geo.panels,
+            geo.threads, geo.smem_bytes, copy, gamma, mu_r, mu_i,
             torch.cuda.current_stream().cuda_stream)
         _build.check(err, "ns_fused_step (wide)")
         LAUNCHES["ns_fused_step_wide"] += 1
         return (*outs, rho)
-    mats = (J, Pr, Pcr, Pci, *outs)
     vec_ok = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in mats)
     err = (lib or _lib()).ns_fused_step_launch(
         J.data_ptr(), Pr.data_ptr(), Pcr.data_ptr(), Pci.data_ptr(),

@@ -24,10 +24,14 @@ the compiler's registers and spills of each.
   ns     ns_fused_step at B members of edge n on random stiff Jacobians,
          with iterates three twin steps past the cold seed, held to its
          twin (2e-5 on the iterates, scaled by 1 + |twin|, and on rho
-         relative), and so each --ns-alt source (another kernel with the
-         C interface of csrc/ns.cu: ns_fused_step_launch and
-         ns_fused_step_blocks_per_sm); the script stops if csrc/ns.cu's
-         kernel fails and exits nonzero at the end if an alt did.
+         relative), through the route cuda_ns.route(n) picks: csrc/ns.cu
+         up to n = 160, csrc/ns_wide.cu above (its geometry, resident
+         blocks a SM where the tree's library reports them, registers and
+         spills are printed); and so each --ns-alt source (another kernel
+         with the C interface of csrc/ns.cu: ns_fused_step_launch and
+         ns_fused_step_blocks_per_sm), which only the one-block route's
+         widths take; the script stops if the tree's kernel fails and
+         exits nonzero at the end if an alt did.
 
 rhs and block are timed with chip_smoke.time_ms (median of 25 samples of
 5 back-to-back calls between CUDA events: chip_smoke's "ms"),
@@ -240,9 +244,10 @@ def ns_times(cs, torch, cuda_ns, libs, B, n, dev):
                f"{'ok' if ok else 'FAILED'}")
         if not ok:
             failed.append(name)
-    if "ns.cu" in failed:
-        raise SystemExit("kernel_time: the kernel of csrc/ns.cu differs "
-                         "from its twin")
+    main_name = next(iter(libs))
+    if main_name in failed:
+        raise SystemExit(f"kernel_time: the kernel of csrc/{main_name} "
+                         "differs from its twin")
 
     def three_bmm():
         Pr, Pcr, Pci = P
@@ -326,9 +331,15 @@ def main():
     if "block" in args.only:
         jobs.append(("block", (_build.CSRC / "block.cu").read_text()))
     ns_names = []
+    wide = "ns" in args.only and cuda_ns.route(args.n) == "wide"
+    if wide and args.ns_alt:
+        raise SystemExit(
+            f"kernel_time: --ns-alt takes sources with csrc/ns.cu's C "
+            f"interface, which holds n <= {cuda_ns.ONE_BLOCK_MAX_N}; n = "
+            f"{args.n} takes the wide route (csrc/ns_wide.cu)")
     if "ns" in args.only:
-        jobs.append(cuda_ns.build_job())
-        ns_names.append("ns.cu")
+        jobs.append(cuda_ns.wide_build_job() if wide else cuda_ns.build_job())
+        ns_names.append("ns_wide.cu" if wide else "ns.cu")
         for path in args.ns_alt:
             stem = os.path.splitext(os.path.basename(path))[0]
             with open(path) as f:
@@ -370,17 +381,25 @@ def main():
     failed = []
     if "ns" in args.only:
         B, n = args.B, args.n
-        geo = cuda_ns.geometry(n)
-        cs.say(f"ns geometry: {geo}")
+        geo = cuda_ns.wide_geometry(n) if wide else cuda_ns.geometry(n)
+        cs.say(f"ns geometry ({cuda_ns.route(n)}): {geo}")
+        result["ns_geometry"] = geo._asdict()
         libs = {}
         for name, path in zip(ns_names, paths[len(paths) - len(ns_names):]):
-            lib = cuda_ns.bind(ctypes.CDLL(str(path)))
-            fn = lib.ns_fused_step_blocks_per_sm
-            fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
-            cs.say(f"build: {name}: {fn(geo.threads, geo.smem_bytes)} "
-                   f"resident block(s) per SM at {geo.threads} threads, "
-                   f"{geo.smem_bytes} bytes of dynamic shared memory")
-            libs[name] = lib
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, "ns_wide_blocks_per_sm" if wide
+                         else "ns_fused_step_blocks_per_sm", None)
+            if fn is None or not hasattr(geo, "smem_bytes"):
+                cs.say(f"build: {name}: this tree reports no resident blocks")
+            else:
+                fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+                blocks = fn(geo.threads, geo.smem_bytes)
+                result.setdefault("ns_blocks_per_sm", {})[name] = blocks
+                cs.say(f"build: {name}: {blocks} resident block(s) per SM "
+                       f"at {geo.threads} threads, {geo.smem_bytes} bytes "
+                       f"of dynamic shared memory")
+            # the wrapper takes the wide route itself (lib=None)
+            libs[name] = None if wide else cuda_ns.bind(lib)
         times, failed = ns_times(cs, torch, cuda_ns, libs, B, n, dev)
         ops = 16 * n ** 3 * B
         bnd = cs.bound(4 * (7 * B * n * n + 2 * B), ops)

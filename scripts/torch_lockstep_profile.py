@@ -2,12 +2,15 @@
 """Where the time of the port's lockstep sweeps goes, on one CUDA card.
 
     python3 scripts/torch_lockstep_profile.py [--leg f32x|f32|n1] [--b B]
+        [--z-no Z]
 
 Runs one of chip_smoke.py's sweeps at B members (default its 4096):
 bench.py's f32x leg (the default) or its f32 leg, through
 rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, or the N1 sweep of
 scripts/bench_torch_n1.py (dense output, the default Jacobian), and
-prints:
+prints (--z-no: the N2 legs on a grid of Z axial nodes, through
+chip_smoke.z_no_of; Z = 30 with --leg f32 --b 256 is chip_smoke's
+f32_wide leg, whose n = 210 takes ns_fused_step's wide route):
   - the wall of a first run (CUDA set-up and kernel builds) and of two
     warm runs, with the integrator's attempts and Jacobian refreshes, and
     the second warm run's kernel launch counts and peak device memory;
@@ -34,7 +37,11 @@ def main():
     ap.add_argument("--leg", choices=("f32x", "f32", "n1"), default="f32x")
     ap.add_argument("--b", type=int, default=None,
                     help="members (default: chip_smoke.py's B)")
+    ap.add_argument("--z-no", type=int, default=None,
+                    help="axial nodes of the N2 grid (default: HomoSpec's)")
     args = ap.parse_args()
+    if args.z_no is not None and args.leg == "n1":
+        raise SystemExit("torch_lockstep_profile: --z-no sets the N2 grid")
     leg = args.leg
 
     import numpy as np
@@ -47,6 +54,7 @@ def main():
     import bench_torch_n1
     import chip_smoke
     from rmt_tpu_torch.cases.dme_case import make_model_input
+    from rmt_tpu_torch.models import homo
     from rmt_tpu_torch.ops import _build, cuda_block, cuda_ns, cuda_rhs
     from rmt_tpu_torch.parallel import run_n2_ensemble_lockstep
     from rmt_tpu_torch.solvers import stiff_ensemble
@@ -54,6 +62,11 @@ def main():
     dev = torch.device("cuda:0")
     card = chip_smoke.header(torch)
     B = args.b or chip_smoke.B
+    if args.z_no is not None:
+        # every N2 spec of this process gets the grid (the process ends
+        # with the patch in place)
+        chip_smoke.z_no_of(homo, args.z_no).__enter__()
+        print(f"grid: zNo {args.z_no}", flush=True)
     if leg == "n1":
         mi = make_model_input(model="N1")
         offs = bench_torch_n1.probe_layout(B)[0]

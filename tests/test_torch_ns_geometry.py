@@ -46,15 +46,47 @@ def test_geometry(n):
     assert geo.smem_bytes == want <= 232_448
 
 
-# n -> (panels, row slabs) of the wide route (32 columns, 64 rows)
-WIDE = {161: (6, 3), 200: (7, 4), 210: (7, 4), 420: (14, 7)}
+# n -> (panel width, panels, slab rows, slab depth, threads, copy bytes) of
+# the wide route: the two test widths, zNo 30's n = 210 (even, not a
+# multiple of 4), an odd n in the 16-column class, zNo 60's n = 420 and
+# n = 1000 (zNo 142)
+WIDE = {161: (44, 4, 168, 20, 256, 4), 200: (40, 5, 200, 20, 256, 16),
+        210: (36, 6, 216, 20, 256, 8), 301: (24, 13, 304, 12, 256, 4),
+        420: (16, 27, 424, 12, 224, 16), 1000: (8, 125, 1000, 4, 256, 16)}
+
+
+def _check_wide(geo, n):
+    """A wide geometry covers n and fits a Hopper block: panels of whole
+    micro-tile columns covering n with no empty panel, all rows in one
+    slab of 8-row micro-tiles, at most 256 threads in whole warps, the
+    shared memory of csrc/ns_wide.cu's layout within 232,448 bytes, and
+    copies as wide as n's rows allow."""
+    assert geo.n == n
+    assert geo.width == 4 * geo.tx and geo.slab_rows == 8 * geo.ty
+    assert geo.panels * geo.width >= n > (geo.panels - 1) * geo.width
+    assert n <= geo.slab_rows < n + 8
+    assert geo.depth in (20, 12, 4)
+    assert geo.tx * geo.ty <= geo.threads <= 256 and geo.threads % 32 == 0
+    assert geo.threads - geo.tx * geo.ty < 32
+    # 128 bytes of barriers, three P / M P panels, two buffers of three A
+    # slabs (depth floats a row; as many rows as the tensor maps' boxes of
+    # at most 256 rows, multiples of 8, hold), three sums a warp
+    boxes = -(-geo.slab_rows // 256)
+    box_rows = 8 * -(-geo.slab_rows // (8 * boxes))
+    assert box_rows <= 256 and n <= boxes * box_rows < n + 8 * boxes + 8
+    want = 128 + 4 * (3 * geo.slab_rows * geo.width
+                      + 6 * boxes * box_rows * geo.depth
+                      + 3 * (geo.threads // 32))
+    assert geo.smem_bytes == want <= 232_448
+    assert geo.copy_bytes == (16 if n % 4 == 0 else 8 if n % 2 == 0 else 4)
+    assert geo.scratch_floats == 3 * geo.panels
 
 
 @pytest.mark.parametrize("n", [0, 161, 200])
 def test_geometry_refuses_what_does_not_fit(n):
     """n = 0 is refused by both routes. A member wider than 160 does not
     fit one block of csrc/ns.cu; the wrapper routes it, from n alone, to
-    csrc/ns_wide.cu, whose geometry holds any n."""
+    csrc/ns_wide.cu, whose geometry holds every n up to its limit."""
     with pytest.raises(ValueError, match="ns_fused_step"):
         cuda_ns.geometry(n)
     if n == 0:
@@ -64,11 +96,43 @@ def test_geometry_refuses_what_does_not_fit(n):
         return
     assert cuda_ns.route(n) == "wide"
     geo = cuda_ns.wide_geometry(n)
-    assert (geo.panels, geo.slabs) == WIDE[n]
-    assert geo.panels * geo.width >= n > (geo.panels - 1) * geo.width
-    assert geo.slabs * geo.slab_rows >= n > (geo.slabs - 1) * geo.slab_rows
-    assert (geo.width, geo.slab_rows, geo.threads) == (32, 64, 256)
-    assert geo.scratch_floats == 3 * n * n + 3 * geo.panels
+    assert (geo.width, geo.panels, geo.slab_rows, geo.depth, geo.threads,
+            geo.copy_bytes) == WIDE[n]
+    _check_wide(geo, n)
+
+
+@pytest.mark.parametrize("n", sorted(set(WIDE) - {161, 200}))
+def test_wide_geometry(n):
+    """The wide geometry at zNo 30 (n = 210: 6 panels of 36 columns, 256
+    threads, slabs of 20), an odd n (4-byte copies, slabs of 12), zNo 60
+    (n = 420: 16 columns, slabs of 12) and n = 1000 (8 columns, slabs of
+    4)."""
+    geo = cuda_ns.wide_geometry(n)
+    assert (geo.width, geo.panels, geo.slab_rows, geo.depth, geo.threads,
+            geo.copy_bytes) == WIDE[n]
+    _check_wide(geo, n)
+
+
+@pytest.mark.parametrize("lo", range(161, 1001, 40))
+def test_wide_geometry_covers(lo):
+    """Every n from 161 to 1,000 (zNo 142), 40 widths a case, has a wide
+    geometry that covers it and fits a block."""
+    for n in range(lo, min(lo + 40, 1001)):
+        _check_wide(cuda_ns.wide_geometry(n), n)
+
+
+def test_wide_geometry_limit():
+    """The widest member the wide route takes is WIDE_MAX_N (a panel of 4
+    columns whose rows fill the shared memory); one wider raises a
+    ValueError that names the limit, while route still sends it wide."""
+    top = cuda_ns.WIDE_MAX_N
+    assert top >= 1000
+    geo = cuda_ns.wide_geometry(top)
+    _check_wide(geo, top)
+    assert geo.width == 4
+    with pytest.raises(ValueError, match=f"limit WIDE_MAX_N = {top}"):
+        cuda_ns.wide_geometry(top + 1)
+    assert cuda_ns.route(top + 1) == "wide"
 
 
 def test_route_boundary():
@@ -79,14 +143,15 @@ def test_route_boundary():
     assert all(cuda_ns.route(n) == "wide" for n in (161, 210, 420, 2000))
 
 
-def _panel_step(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i):
-    """One Newton-Schulz step in the order of csrc/ns.cu: for each column
-    panel of cuda_ns.geometry, the three MP panels from J and the P
-    panels, the panel's Frobenius partial sums (added to the running sums
-    in panel order), then the P' panels from all rows of P and the MP
-    panels. Plain float32 torch.matmul on panels."""
+def _panel_step(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i, geo=None):
+    """One Newton-Schulz step in the order of csrc/ns.cu (geo of
+    cuda_ns.geometry) or csrc/ns_wide.cu (geo of cuda_ns.wide_geometry):
+    for each column panel, the three MP panels from J and the P panels,
+    the panel's Frobenius partial sums (added to the running sums in panel
+    order), then the P' panels from all rows of P and the MP panels. Plain
+    float32 torch.matmul on panels."""
     n = J.shape[-1]
-    geo = cuda_ns.geometry(n)
+    geo = geo or cuda_ns.geometry(n)
     h = h32[:, None, None]
     g, mr, mi = gamma * h, mu_r * h, mu_i * h
     eye = torch.eye(n, dtype=J.dtype)
@@ -148,56 +213,20 @@ def test_panel_order_matches_twin_and_pallas(n):
 
 
 def _wide_step(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i):
-    """One Newton-Schulz step in the order of csrc/ns_wide.cu: for each
-    column panel of cuda_ns.wide_geometry, row slab by row slab, the three
-    MP rows from J's rows and the P panels and their Frobenius sums; then,
-    slab by slab, the P' rows from P's rows and the MP panels; the
-    panels' sums added in panel order. Plain float32 torch.matmul."""
-    n = J.shape[-1]
-    geo = cuda_ns.wide_geometry(n)
-    h = h32[:, None, None]
-    g, mr, mi = gamma * h, mu_r * h, mu_i * h
-    eye = torch.eye(n, dtype=J.dtype)
-    outs = [torch.empty_like(Pr) for _ in range(3)]
-    mp = [torch.empty_like(Pr) for _ in range(3)]
-    sums = torch.zeros((J.shape[0], geo.panels, 3), dtype=J.dtype)
-    for p in range(geo.panels):
-        jp = slice(p * geo.width, min((p + 1) * geo.width, n))
-        for s in range(geo.slabs):
-            ir = slice(s * geo.slab_rows, min((s + 1) * geo.slab_rows, n))
-            jpr, jpcr, jpci = (J[:, ir] @ P[..., jp] for P in (Pr, Pcr, Pci))
-            mpr = Pr[:, ir, jp] - g * jpr
-            mpcr = Pcr[:, ir, jp] - (mr * jpcr - mi * jpci)
-            mpci = Pci[:, ir, jp] - (mr * jpci + mi * jpcr)
-            dr, dc = eye[ir, jp] - mpr, eye[ir, jp] - mpcr
-            sums[:, p] += torch.stack([torch.sum(dr * dr, dim=(-1, -2)),
-                                       torch.sum(dc * dc, dim=(-1, -2)),
-                                       torch.sum(mpci * mpci, dim=(-1, -2))],
-                                      dim=-1)
-            for buf, val in zip(mp, (mpr, mpcr, mpci)):
-                buf[:, ir, jp] = val
-        for s in range(geo.slabs):
-            ir = slice(s * geo.slab_rows, min((s + 1) * geo.slab_rows, n))
-            a_r, a_cr, a_ci = Pr[:, ir], Pcr[:, ir], Pci[:, ir]
-            m_r, m_cr, m_ci = (m[..., jp] for m in mp)
-            outs[0][:, ir, jp] = 2.0 * Pr[:, ir, jp] - a_r @ m_r
-            outs[1][:, ir, jp] = 2.0 * Pcr[:, ir, jp] - (a_cr @ m_cr
-                                                         - a_ci @ m_ci)
-            outs[2][:, ir, jp] = 2.0 * Pci[:, ir, jp] - (a_ci @ m_cr
-                                                         + a_cr @ m_ci)
-    s_r, s_c, s_i = torch.zeros(3, J.shape[0], dtype=J.dtype)
-    for p in range(geo.panels):
-        s_r, s_c, s_i = s_r + sums[:, p, 0], s_c + sums[:, p, 1], \
-            s_i + sums[:, p, 2]
-    rho = torch.maximum(torch.sqrt(s_r / n), torch.sqrt((s_c + s_i) / n))
-    return (*outs, rho)
+    """One Newton-Schulz step in the order of csrc/ns_wide.cu: a block per
+    (member, panel of cuda_ns.wide_geometry) takes all rows at once, so
+    the order is the panel order of _panel_step at the wide route's panel
+    width; the panels' sums are added in panel order."""
+    return _panel_step(J, Pr, Pcr, Pci, h32, gamma, mu_r, mu_i,
+                       geo=cuda_ns.wide_geometry(J.shape[-1]))
 
 
-@pytest.mark.parametrize("n", [161, 200])
+@pytest.mark.parametrize("n", [161, 200, 210, 301])
 def test_wide_order_matches_twin_and_pallas(n):
-    """The wide route's panel-and-slab order computes the same step:
-    within 1e-6 of the twin and within the 2e-5 bar of rmt_tpu's kernel
-    (interpret mode), which takes the whole (1, n, n) member at any n."""
+    """The wide route's panel order computes the same step (161 and 301
+    odd, 210 even and not a multiple of 4): within 1e-6 of the twin and
+    within the 2e-5 bar of rmt_tpu's kernel (interpret mode), which takes
+    the whole (1, n, n) member at any n."""
     J, Pr, Pcr, Pci, h32 = _setup(n)
     got = _wide_step(J, Pr, Pcr, Pci, h32, *EIG.values())
     twin = cuda_ns.ns_fused_step_twin(J, Pr, Pcr, Pci, h32, *EIG.values())

@@ -172,14 +172,16 @@ def test_cold_start_chain_matches_pallas_kernel():
 def test_workspace_alternates_between_its_sets():
     """A Workspace hands out the set of output buffers the input iterate
     does not live in, so a chain of steps never writes what it reads. For
-    the one-block kernel (n <= 160) it holds nothing else: that kernel
-    keeps its M P intermediates in shared memory, so there is no
-    (B, 3, n, n) scratch; only the wide route (n > 160) gets one."""
+    the one-block kernel (n <= 160) it holds nothing else: both routes
+    keep their M P intermediates in shared memory, so there is no
+    (B, 3, n, n) scratch; the wide route (n > 160) gets only its panels'
+    Frobenius sums, three floats a panel and member."""
     ws = cuda_ns.Workspace(2, 5, "cpu")
     assert vars(ws).keys() == {"sets", "scratch"} and ws.scratch is None
     wide = cuda_ns.Workspace(2, 161, "cpu")
     assert (wide.scratch.numel()
-            == 2 * cuda_ns.wide_geometry(161).scratch_floats)
+            == 2 * cuda_ns.wide_geometry(161).scratch_floats
+            == 2 * 3 * cuda_ns.wide_geometry(161).panels)
     assert all(tuple(t.shape) == (2, 5, 5) for s in ws.sets for t in s)
     foreign = torch.zeros((2, 5, 5))
     assert ws.out_for(foreign) is ws.sets[0]
