@@ -117,7 +117,22 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      and no other kernel (counts reset just before it); M9's RHS and
      frozen-march Jacobian blocks on the card against the CPU at 1e-12
      (rmt_tpu's own M9 run exhausts its attempt budget, so M9 is not
-     integrated here).
+     integrated here);
+ 12. steady_het, the particle, axial-dispersion and steady heterogeneous
+     models (rmt_tpu_torch/cases/hetero_case.py's inputs), which launch
+     none of the kernels: rmtExe T1 (FDM, rNo 7, period 5 s), T2 by FDM,
+     OC and OCFE, T3 (zNo 10), M5 and M14 (zNo 30) in a child process that
+     starts with phase 11's (the host's work), each within 1e-6 relative
+     of models_ref.npz (rmt_tpu, CPU float64), T1's checkpoint state too
+     and its attempts within 1.25 times the reference's (the M2 bar),
+     and no kernel launched in the child; then run_m14_sweep at
+     M14_SWEEP_B members (zNo 30, n = 420, T0 = 523 + linspace(0, 20, B)
+     with models_ref.npz's three inlet temperatures at members 0, B // 2
+     and B - 1; wall split into the pseudo-transient continuation and the
+     Newton polish, members/s, peak device memory): every member
+     converged and finite, those three members within 1e-6 of
+     models_ref.npz, member 0 within 1e-6 of the child's rmtExe M14 on the
+     card; counts reset just before the phase, all 0 after it.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -165,6 +180,8 @@ WIDE_Z, F32_WIDE_B = 30, 256
 F32_WIDE_KERNELS = ("ns_fused_step_wide", "n2_rhs_plain")
 # the models phase: rmtExe M2's stage solves
 M2_KERNELS = ("block_factor", "block_apply", "block_apply_real")
+# the steady_het phase: run_m14_sweep at M14_SWEEP_B members
+M14_SWEEP_B = 256
 # the microbatch check: MICRO_B members in slices of MICROBATCH
 MICRO_B, MICROBATCH = 512, 256
 # the seq phase: explicit steppers at SEQ_B members, STEPS fixed steps
@@ -1390,6 +1407,86 @@ def models_phase(torch, np, bench_seq, counts, dev, steady_proc):
     return launches
 
 
+def start_hetero_models():
+    """A child process running rmtExe T1, T2 (FDM, OC, OCFE), T3, M5 and
+    M14 on the card (scripts/bench_torch_seq.hetero_model, one call each)
+    while this process works; it writes a JSON object of their records
+    and of the kernel launches of its process to its stdout."""
+    code = "\n".join((
+        f"import sys, json; sys.path[:0] = [{ROOT!r}, "
+        f"{os.path.join(ROOT, 'scripts')!r}]",
+        "import torch",
+        "import bench_torch_seq as b",
+        "from rmt_tpu_torch.ops import cuda_block, cuda_ns, cuda_rhs",
+        "ref = b.models_ref()",
+        "out = [b.hetero_model(torch, torch.device('cuda:0'), m, ref, "
+        "warm=False) for m in b.HETERO_MODELS]",
+        "launches = {k: v for c in (cuda_block, cuda_ns, cuda_rhs) "
+        "for k, v in c.LAUNCHES.items()}",
+        "print(json.dumps({'records': out, 'launches': launches}))"))
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def steady_het_phase(torch, np, bench_seq, counts, dev, het_proc):
+    """The particle, axial-dispersion and steady heterogeneous models and
+    the M14 design sweep on the card (see the module docstring, phase
+    12): every check exits nonzero; no kernel may launch."""
+    t_phase = time.perf_counter()
+    reset_counts(counts)
+    t0 = time.perf_counter()
+    sout, serr = het_proc.communicate(timeout=900)
+    check(het_proc.returncode == 0, "steady_het: the model child failed: "
+          + serr.decode(errors="replace")[-2000:])
+    say(f"steady_het: model child ready (waited "
+        f"{time.perf_counter() - t0:.1f} s)")
+    child = json.loads(sout.decode().strip().splitlines()[-1])
+    co_gas = None
+    for r in child["records"]:
+        extra = ""
+        if "ref_attempts" in r:
+            extra = (f", attempts {r['attempts']} ({r['accepted']} accepted,"
+                     f" {r['rejected']} rejected; reference "
+                     f"{r['ref_attempts']}: {r['ref_accepted']} and "
+                     f"{r['ref_rejected']}; bar x "
+                     f"{bench_seq.ATTEMPTS_RATIO})")
+        say(f"steady_het: {r['part']} ({r['n_var']} rows x {r['points']} "
+            f"points): wall {r['first_s']:.3f} s (its process's first call "
+            f"of it), radau attempts {r.get('attempts', 0)}, Newton "
+            f"iterations {r.get('newton_iterations', 0)}, max_rel_err "
+            f"{r['max_rel_err']:.4e} (bar {r['bar']:g}){extra}")
+        check(r["ok"], f"steady_het: {r['part']} failed its check: "
+              + json.dumps({k: v for k, v in r.items() if k != "co_gas"}))
+        co_gas = r.get("co_gas", co_gas)
+    say(f"steady_het: kernel launches in the model child "
+        f"{child['launches']}")
+    check(not any(child["launches"].values()),
+          f"steady_het: a kernel launched in the model child: "
+          f"{child['launches']}")
+    check(co_gas is not None, "steady_het: no rmtExe M14 record")
+
+    ref = bench_seq.models_ref()
+    r = bench_seq.m14_sweep(torch, dev, M14_SWEEP_B, ref, co_gas=co_gas)
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in r["split_s"].items())
+    say(f"steady_het: run_m14_sweep B {r['B']} (zNo 30, n {r['n']}): wall "
+        f"{r['wall_s']:.3f} s ({split}), {r['members_per_sec']:.2f} "
+        f"members/s, peak {r['peak_gib']:.3f} GiB; converged "
+        f"{r['converged']}/{r['B']}, max residual {r['res_norm_max']:.3e}; "
+        f"members 0, {r['B'] // 2}, {r['B'] - 1} against models_ref.npz: "
+        f"max_rel_err {r['max_rel_err']:.4e} (bar {r['bar']:g}); member 0 "
+        f"against rmtExe M14 on the card {r['member0_vs_rmtexe']:.4e}")
+    check(r["converged"] == r["B"] and r["finite"],
+          f"steady_het: {r['B'] - r['converged']} sweep members did not "
+          "converge or are not finite")
+    check(r["ok"], f"steady_het: the sweep failed its check: {r}")
+
+    launches = {k: v for table in counts for k, v in table.items()}
+    say(f"steady_het: kernel launches {launches} (these paths run none)")
+    check(not any(launches.values()),
+          f"steady_het: a kernel launched on these paths: {launches}")
+    say(f"steady_het: phase wall {time.perf_counter() - t_phase:.3f} s")
+
+
 def newton_system(torch, np, b, device):
     """(f, r, member) of b independent cubic systems x**3 + p x + C x = q
     in NEWTON_N unknowns (numpy seed SEED; p > 0 per member, C a shared
@@ -1706,10 +1803,12 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
                           counts, dev, ref_n1)
     phase("microbatch", microbatch_phase, torch, np, mi,
           run_n2_ensemble_lockstep, dev)
-    # the steady models run in a child through seq and est (the host's
-    # work: one sequential Radau integration each)
+    # the steady models and the phase-12 models run in two children
+    # through seq and est (the host's work: sequential Radau integrations
+    # and Newton solves of one state each)
     steady_proc = start_steady_models()
-    children.append(steady_proc)
+    het_proc = start_hetero_models()
+    children += [steady_proc, het_proc]
     phase("seq", seq_phase, torch, np, benches.seq, counts, dev, ref_n1)
     phase("est", est_phase, torch, np, benches.est, counts, dev)
     wide = phase("f32_wide", f32_wide_phase, torch, np, homo, mi,
@@ -1718,6 +1817,8 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
         wide["f32"]
     by_path["m2"] = phase("models", models_phase, torch, np, benches.seq,
                           counts, dev, steady_proc)
+    phase("steady_het", steady_het_phase, torch, np, benches.seq, counts,
+          dev, het_proc)
     say("phase walls (s): " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
 

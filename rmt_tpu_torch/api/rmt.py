@@ -1,5 +1,5 @@
-# Public API: rmtExe(modelInput) / rmtCom() (port of the N1/N2 and
-# M0-M4, M7-M9 slices of rmt_tpu/api/rmt.py).
+# Public API: rmtExe(modelInput) / rmtCom() (port of rmt_tpu/api/rmt.py
+# for every model id but the dynamic heterogeneous M10-M13).
 #
 # Same dict-in / dataPack-out contract as the reference
 # (PyREMOT/rmt.py:21-92, PyREMOT/docs/rmtCore.py:63-127): modelInput
@@ -9,9 +9,11 @@
 # names: N1, N2 and the steady M0, M1, M4, M7, M8 and batch M3 on the
 # sequential integrators of solvers/ (radau, dopri5, fixed.precorr3), the
 # dynamic M2 and M9 on the lockstep integrator in block mode (B = 1, the
-# block kernels of ops/cuda_block.py on the card). Eager PyTorch compiles
-# nothing, so there is no cache of built programs. Every other model id
-# of rmt_tpu raises NotImplementedError until its port lands.
+# block kernels of ops/cuda_block.py on the card), M5 and the dynamic
+# particle T1 on radau, and the steady T2 (newton), T3 and M14 (radau
+# pseudo-transient continuation, then newton) as root problems. Eager
+# PyTorch compiles nothing, so there is no cache of built programs.
+# M10-M13 raise NotImplementedError until their port lands.
 # display-result "True" plots the result after the run through io/plot
 # (matplotlib on the host), as rmt_tpu does; RMT_TORCH_PROFILE=<dir>
 # writes a torch.profiler trace of the call.
@@ -36,7 +38,7 @@ from ..utils import roundNum
 ISO = homo.ISO_THERMAL
 
 # model ids of rmt_tpu; the port runs _PORTED and raises
-# NotImplementedError for the rest until their build step lands
+# NotImplementedError for the rest (the dynamic heterogeneous M10-M13)
 _MODEL_IDS = {
     "M2": "dynamic packed-bed reactor, concentration variables",
     "M3": "batch reactor",
@@ -58,7 +60,8 @@ _MODEL_IDS = {
     "M13": "dynamic heterogenous packed bed, gas/solid operator splitting",
     "M14": "steady-state heterogenous packed bed, gas + lumped catalyst phase",
 }
-_PORTED = ("N1", "N2", "M0", "M1", "M2", "M3", "M4", "M7", "M8", "M9")
+_PORTED = ("N1", "N2", "M0", "M1", "M2", "M3", "M4", "M5", "M7", "M8",
+           "M9", "M14", "T1", "T2", "T3")
 
 _SOLVER_SETTING = {
     "N1": {"zNo": 100},
@@ -696,6 +699,275 @@ def _run_m2(model_input, opts, device, dtype, model_id="M2"):
 
 
 # ---------------------------------------------------------------------------
+# M5: steady plug-flow heterogeneous reactor, molar-flow variables
+# ---------------------------------------------------------------------------
+
+def _run_m5(model_input, opts, device, dtype):
+    from ..models import hetero
+
+    spec = hetero.build_spec(model_input)
+    p = hetero.build_params(model_input, dtype=dtype, device=device)
+    # rmt_tpu runs M5 on Radau whatever ivp says
+    ts = torch.linspace(0.0, 1.0, spec.z_out, dtype=dtype,
+                        device=device) * p["ReLe"]
+    rhs = hetero.make_m5_rhs(spec)
+    ys, stats = radau.odeint(lambda t, y: rhs(t, y, p),
+                             hetero.m5_initial_state(spec, p), ts,
+                             rtol=opts["rtol"], atol=opts["atol"])
+    _check_integration(stats, "M5")
+    xy_list, data_list = _xy_result(
+        ts.cpu().numpy(), ys.T.cpu().numpy(),
+        list(spec.comp_list) + ["Flux", "Temperature", "Pressure"], opts,
+        "Reactor Length (m)")
+    return {"XYList": xy_list, "dataList": data_list}
+
+
+# ---------------------------------------------------------------------------
+# T1/T2: single catalyst-particle diffusion-reaction
+# ---------------------------------------------------------------------------
+
+def _particle_pack(spec, resh, p):
+    """The dataPack entry of a particle state resh (n_layer, rNo) in
+    numpy: dimensionless and real concentrations and temperature, mole
+    fractions."""
+    c_max = float(torch.max(p["SpCoi0"]))
+    Tf = float(p["T0"])
+    iso = spec.iso_thermal
+    conc_dl = resh[:-1] if not iso else resh
+    temp_dl = (resh[-1:].reshape(1, spec.r_no) if not iso
+               else np.zeros((1, spec.r_no)))
+    conc_re = conc_dl * c_max
+    temp_re = temp_dl * Tf + Tf
+    return {
+        "successStatus": True,
+        "dataYCo_DiLe": conc_dl,
+        "dataYCo": conc_re,
+        "dataYMoFr": conc_re / np.sum(conc_re, axis=0),
+        "dataYT_DiLe": temp_dl,
+        "dataYT": temp_re,
+        "dataY": np.concatenate([conc_re, temp_re], axis=0),
+    }
+
+
+def _run_t1(model_input, opts, device, dtype):
+    from ..models import particle
+
+    # T1 honors the reference's LSODA default tolerances unless the user
+    # overrides them: the model's unscaled reaction-term quirk
+    # (ops/particle_fd.py) makes the early transient explosively unstable
+    # (autocatalytic modes with Re(lambda) ~ +1e12), and resolving it at
+    # tight tolerance stalls any integrator -- the reference only ever runs
+    # it at rtol=1e-3/atol=1e-6 (scipy defaults)
+    sc = model_input.get("solver-config", {})
+    rtol, atol = float(sc.get("rtol", 1e-3)), float(sc.get("atol", 1e-6))
+    # radial discretization: "fdm" (default) or "oc" (reference
+    # test-const numerical-method, particleModels.py:165-184; its OC
+    # branch crashes -- models.particle.make_t1_rhs_oc)
+    method = (
+        model_input.get("test-const", {}).get("numerical-method")
+        or model_input.get("operating-conditions", {}).get("numerical-method")
+        or "fdm"
+    )
+    spec = particle.build_spec(model_input)
+    p = particle.build_params(model_input, dtype=dtype, device=device)
+    # OC drives the FDM branch's (raw-source) equations on the OC basis
+    rhs = (particle.make_t1_rhs_oc(spec, scaled_sources=False,
+                                   clamp_interface=True)
+           if method == "oc" else particle.make_t1_rhs(spec))
+    y_default = particle.t1_initial_state(spec, p)
+    y_init, t_start = _resume_or(model_input, y_default,
+                                 int(y_default.shape[0]), "T1")
+    ts = (t_start + p["opT"] * torch.linspace(
+        0.0, 1.0, spec.t_no + 1, dtype=dtype, device=device)).to(dtype)
+    ys, stats = radau.odeint(lambda t, y: rhs(t, y, p), y_init, ts,
+                             rtol=rtol, atol=atol)
+    _check_integration(stats, "T1")
+    t_bounds = ts.cpu().numpy()
+
+    data_pack = []
+    for i in range(spec.t_no):
+        if method == "oc":
+            # the OC surface row is dead storage; report the recomputed
+            # algebraic interface value
+            resh = particle.t1_oc_surface_values(spec, p, ys[i + 1])
+        else:
+            resh = ys[i + 1].reshape(spec.n_layer, spec.r_no)
+        pack = _particle_pack(spec, resh.cpu().numpy(), p)
+        data_pack.append({"successStatus": True,
+                          "dataTime": t_bounds[i + 1], **pack})
+    xy_list, data_list = _xy_result(
+        np.linspace(0.0, 1.0, spec.r_no), data_pack[-1]["dataY"],
+        list(spec.comp_list) + ["Temperature"], opts,
+        "Dimensionless Particle Radius")
+    return {
+        "XYList": xy_list,
+        "dataList": data_list,
+        "dataPack": data_pack,
+        "solverStats": _stats_dict(stats),
+        "checkpoint": {
+            "model": "T1",
+            "t": float(t_bounds[-1]),
+            "state": ys[-1].cpu().numpy().copy(),
+        },
+    }
+
+
+def _run_t2(model_input, opts, device, dtype):
+    from ..models import particle
+    from ..ops import ocfe, oc_particle
+    from ..solvers import newton
+
+    sc = model_input.get("solver-config", {})
+    # radial discretization: "fdm" (default), "oc" or "fem" (reference
+    # reads solver-config numerical-method for T2, particleModels.py:1126)
+    method = (
+        sc.get("numerical-method")
+        or model_input.get("test-const", {}).get("numerical-method")
+        or model_input.get("operating-conditions", {}).get("numerical-method")
+        or "fdm"
+    )
+    # "fem" = OCFE: NuEl 4-point Lobatto elements over the radius
+    # (reference particleModels.py:1270-1282; NuEl default solSetting.py:101)
+    nu_el = int(sc.get("NuEl", 6))
+    if method == "fem":
+        spec = particle.build_spec(model_input, r_no=3 * nu_el + 1)
+        res_fn = particle.make_t2_residual_ocfe(spec, nu_el)
+        # the radial output grid: the discretization's own nodes
+        # (reference particleModels.py:1255-1282)
+        data_rs = np.asarray(ocfe.ocfe_basis(nu_el)["xi"], dtype=np.float64)
+    else:
+        spec = particle.build_spec(model_input)
+        if method == "oc":
+            res_fn = particle.make_t2_residual_oc(spec)
+            data_rs = np.asarray(oc_particle.oc_operator()["Xc"],
+                                 dtype=np.float64)
+        else:
+            res_fn = particle.make_t2_residual_fn(spec)
+            data_rs = np.linspace(0.0, 1.0, spec.r_no)
+    p = particle.build_params(model_input, dtype=dtype, device=device)
+    d = particle.t2_derived(spec, p)
+    sol = newton.root(lambda y: res_fn(y, p, d),
+                      particle.t2_initial_state(spec, p), max_iter=80)
+    if not bool(sol.converged):
+        raise RuntimeError(
+            f"T2 root solve did not converge (|F|={float(sol.residual_norm):.2e})")
+
+    pack = _particle_pack(
+        spec, sol.x.reshape(spec.n_layer, spec.r_no).cpu().numpy(), p)
+    xy_list, data_list = _xy_result(
+        data_rs, pack["dataY"], list(spec.comp_list) + ["Temperature"], opts,
+        "Dimensionless Particle Radius")
+    return {"XYList": xy_list, "dataList": data_list, "dataPack": [pack]}
+
+
+# ---------------------------------------------------------------------------
+# T3 and M14: steady axial-dispersion models, solved as root problems
+# ---------------------------------------------------------------------------
+
+def _axial_grid(model_input, default_z_no):
+    """(mesh, zNo, data_xs) of a steady axial-dispersion model
+    (stencils.solver_grid, and the nodes' positions)."""
+    from ..ops import stencils
+
+    mesh, z_no = stencils.solver_grid(model_input, default_z_no)
+    return mesh, z_no, (np.linspace(0.0, 1.0, z_no) if mesh is None
+                        else np.asarray(mesh["xs"]))
+
+
+def _run_t3(model_input, opts, device, dtype):
+    """Steady axial-dispersion pseudo-homogeneous model (reference:
+    examples/homoModels.py runT1; registered as T3Init in rmtCore.py:440
+    but unreachable through the reference dispatcher -- routed here).
+
+    Solved by pseudo-transient continuation (Radau to a large pseudo-time)
+    followed by a damped-Newton polish; the reference's fsolve from the
+    0.5/0.25 flat guess diverges for strongly exothermic cases."""
+    from ..solvers import newton
+
+    mesh, z_no, data_xs = _axial_grid(model_input, 10)
+    spec = homo.build_spec(model_input, z_no=z_no)
+    p = homo.t3_params(model_input, dtype=dtype, device=device)
+    d = homo.t3_feed(spec, p)
+    res_fn = homo.make_t3_residual(spec, mesh=mesh)
+    c_in = (p["SpCoi0"] / d["Cmax"])[:, None].expand(spec.n_comp, z_no)
+    rows = [c_in] + ([] if spec.iso_thermal else [torch.zeros_like(c_in[:1])])
+    y0 = torch.cat(rows, dim=0).reshape(-1)
+    # pseudo-transient continuation to the attractor of F
+    ys, _ = radau.odeint(lambda t, y: res_fn(y, p, d), y0,
+                         torch.tensor([0.0, 20.0], dtype=dtype, device=device),
+                         rtol=1e-6, atol=1e-9)
+    sol = newton.root(lambda y: res_fn(y, p, d), ys[-1], max_iter=50,
+                      tol=1e-8)
+    if not bool(sol.converged):
+        raise RuntimeError(
+            f"T3 root solve did not converge (|F|={float(sol.residual_norm):.2e})")
+
+    n_layer = spec.n_comp + (0 if spec.iso_thermal else 1)
+    resh = sol.x.reshape(n_layer, z_no).cpu().numpy()
+    c_dl = resh[: spec.n_comp]
+    theta = resh[spec.n_comp] if not spec.iso_thermal else np.zeros(z_no)
+    c_max = float(np.max(np.asarray(model_input["feed"]["concentration"])))
+    conc_re = c_dl * c_max                              # MAX-mode real values
+    temp_re = (1.0 + theta) * float(
+        model_input["operating-conditions"]["temperature"])
+    mo_fri = conc_re / np.sum(conc_re, axis=0, keepdims=True)
+    data_y = np.concatenate([mo_fri, temp_re[None]], axis=0)
+    xy_list, data_list = _xy_result(
+        data_xs, data_y, list(spec.comp_list) + ["Temperature"], opts,
+        "Reactor Length (m)", "Concentration (mol/m^3)")
+    return {"dataYs": data_y, "XYList": xy_list, "dataList": data_list}
+
+
+def _run_m14(model_input, opts, device, dtype):
+    """Steady heterogeneous packed bed with a lumped catalyst phase
+    (reference: pbReactor.runM9 via rmtCore.M14Init, with a rampList
+    kinetics continuation), solved on a row-scaled residual
+    (hetero.m14_row_scales) by pseudo-transient continuation + damped
+    Newton from the feed profile (hetero.make_m14_runner)."""
+    from ..models import hetero
+
+    mesh, z_no, data_xs = _axial_grid(model_input, 30)
+    spec = hetero.m14_build_spec(model_input, z_no=z_no)
+    if spec.iso_thermal:
+        # the reference's iso-thermal branch pins T* = 0 but keeps the
+        # temperature unknowns in the root system (pbReactor.py:8101-8104),
+        # leaving them unconstrained -- a singular Jacobian for any root
+        # solver. Refuse instead of silently solving the wrong system.
+        raise NotImplementedError(
+            "M14 iso-thermal is degenerate in the reference formulation "
+            "(temperature unknowns decouple); use process-type "
+            "'non-iso-thermal'"
+        )
+    p = hetero.m14_params(model_input, dtype=dtype, device=device)
+    x, converged, res_norm = hetero.make_m14_runner(
+        spec, mesh=mesh, ramp_list=hetero.m14_ramps(model_input))(p)
+    if not converged:
+        raise RuntimeError(
+            f"M14 root solve did not converge (|F|={float(res_norm):.2e})")
+
+    resh = x.reshape(spec.n_comp + 1, 2, z_no).cpu().numpy()
+    c_max = float(np.max(np.asarray(model_input["feed"]["concentration"])))
+    T0 = float(model_input["operating-conditions"]["temperature"])
+    conc_gas = resh[: spec.n_comp, 0] * c_max
+    conc_sol = resh[: spec.n_comp, 1] * c_max
+    temp_gas = (1.0 + resh[spec.n_comp, 0]) * T0
+    temp_sol = (1.0 + resh[spec.n_comp, 1]) * T0
+    mo_fri = conc_gas / np.sum(conc_gas, axis=0, keepdims=True)
+    labels = (list(spec.comp_list) + ["Gas Temp"]
+              + list(spec.comp_list) + ["Solid Temp"])
+    data_y = np.concatenate([mo_fri, temp_gas[None], conc_sol,
+                             temp_sol[None]], axis=0)
+    xy_list, data_list = _xy_result(data_xs, data_y, labels, opts,
+                                    "Reactor Length (m)")
+    return {"dataYs": data_y, "XYList": xy_list, "dataList": data_list,
+            "dataPack": [{
+                "successStatus": True,
+                "dataYCoGas": conc_gas, "dataYCoSolid": conc_sol,
+                "dataYTempGas": temp_gas, "dataYTempSolid": temp_sol,
+            }]}
+
+
+# ---------------------------------------------------------------------------
 
 def rmtExe(modelInput: Mapping[str, Any], device=None):
     """Check model input, then start computation (reference: rmt.py:21-80),
@@ -780,9 +1052,13 @@ def _rmt_exe_inner(modelInput: Mapping[str, Any], device):
         res_model = _run_m2(modelInput, opts, device, dtype, model_type)
     elif model_type == "M3":
         res_model = _run_batch(modelInput, opts, device, dtype)
-    else:   # M7, M8
+    elif model_type in ("M7", "M8"):
         res_model = _run_m_conc_steady(modelInput, opts, device, dtype,
                                        model_type)
+    else:   # M5, M14, T1, T2, T3
+        res_model = {"M5": _run_m5, "M14": _run_m14, "T1": _run_t1,
+                     "T2": _run_t2, "T3": _run_t3}[model_type](
+            modelInput, opts, device, dtype)
 
     com_time = (timer() - tic) * 1000
     return {"resModel": res_model, "comTime": com_time}

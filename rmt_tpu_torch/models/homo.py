@@ -1,6 +1,7 @@
-# Pseudo-homogeneous packed-bed reactor, steady model N1 and dynamic model
-# N2 (port of the N1 and N2 slices of rmt_tpu/models/homo.py),
-# dimensionless formulation, as plain functions on tensors.
+# Pseudo-homogeneous packed-bed reactor, steady model N1, dynamic model N2
+# and the steady axial-dispersion model T3 (port of the N1, N2 and T3
+# slices of rmt_tpu/models/homo.py), dimensionless formulation, as plain
+# functions on tensors.
 #
 # Same math as the reference's modelEquationN1 (PyREMOT/docs/
 # pbHomoReactor.py:3017-3314; z is the integration variable) and
@@ -25,7 +26,9 @@ from ..data import species as DB
 from ..kinetics.dsl import RateProgram
 from ..kinetics.stoich import Stoichiometry
 from ..ops import df32 as _df32
+from ..ops import stencils as _stencils
 from ..props import thermo, transport
+from ..utils.tables import DeviceTables
 
 ISO_THERMAL = "iso-thermal"
 
@@ -424,3 +427,222 @@ def make_n2_bidiag_blocks(spec: HomoSpec):
         make_n2_rhs(spec, frozen_pressure_jac=True), spec.var_no_n2,
         spec.z_no
     )
+
+
+# ---------------------------------------------------------------------------
+# T3: steady axial-dispersion pseudo-homogeneous model, posed as a nonlinear
+# root problem F(y) = 0 (reference: PyREMOT/examples/homoModels.py:49-539,
+# the runT1 routine, and :540-1421, modelEquationT1; the reference registers
+# it as T3Init, rmtCore.py:440-449, but never routes "T3"). Both mesh
+# branches: uniform (solver-config mesh == "normal") and the two-zone
+# refined mesh (ops/stencils.two_zone_mesh).
+# ---------------------------------------------------------------------------
+
+def t3_params(model_input: Mapping[str, Any], dtype=None,
+              device=None) -> dict[str, Any]:
+    """build_params + the transport feed fields T3 needs
+    (homoModels.py:105-134)."""
+    p = build_params(model_input, dtype=dtype, device=device)
+    feed = model_input["feed"]
+    ex_he = model_input.get(
+        "external-heat", {"OvHeTrCo": 0.0, "EfHeTrAr": 0.0, "MeTe": 0.0})
+
+    def f(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                               dtype=p["T0"].dtype, device=p["T0"].device)
+
+    p.update({
+        # vf: the user-given superficial velocity (homoModels.py:113,294)
+        "vf": f(feed["superficial-velocity"]),
+        "GaDii0": f(feed["diffusivity"]),
+        "GaThCoMix0": f(feed["mixture-thermal-conductivity"]),
+        "GaViMix0": f(feed["mixture-viscosity"]),
+        # T3 uses the user's heat-transfer area as given -- unlike N1/N2's
+        # 4/ReInDi quirk (homoModels.py:1099-1104)
+        "EfHeTrAr": f(ex_he["EfHeTrAr"]),
+    })
+    return p
+
+
+def t3_feed(spec, p: Mapping[str, Any]) -> dict[str, Any]:
+    """Feed scales for T3 (homoModels.py:280-340), and the gas phase of
+    M14 (models/hetero.m14_feed).
+
+    Differences vs feed_state (the N-models): SpCoi0 is taken in kmol/m^3
+    and density uses SpCo0*1000; the heat convective scale carries a 1e-3
+    (kJ) factor; Peclet numbers appear because of the dispersion terms.
+    """
+    idx = spec.comp_idx
+    sp_coi0 = p["SpCoi0"]
+    mw = torch.as_tensor(DB.MW[idx], dtype=sp_coi0.dtype,
+                         device=sp_coi0.device)
+    cr_se_ar = PI_CONST * p["ReInDi"] ** 2 / 4
+    sp_co0 = torch.sum(sp_coi0)
+    mo_fri0 = sp_coi0 / sp_co0
+    mi_mo_we0 = thermo.mixture_molecular_weight(mo_fri0, mw, "kg/mol")
+    ga_de0 = thermo.density_ig(mi_mo_we0, sp_co0 * 1000.0)
+    cp_mean0 = thermo.cp_mean(p["T0"], idx)
+    cp_mix0 = thermo.cp_mix(mo_fri0, cp_mean0)
+
+    c_max = torch.max(sp_coi0)
+    vf = p["vf"]
+    zf = p["ReLe"]
+    # MAX-mode scalar mass scale (homoModels.py:304-307)
+    ga_ma_co_te0 = (vf / zf) * c_max
+    # heat convective scale in kJ (homoModels.py:310)
+    ga_he_co_te0 = (ga_de0 * vf * p["T0"] * (cp_mix0 / mi_mo_we0) / zf) * 1e-3
+    pe_ma0 = vf * zf / p["GaDii0"]                     # (n_comp,)
+    pe_he0 = zf * ga_de0 * (cp_mix0 / mi_mo_we0) * vf / p["GaThCoMix0"]
+    # QUIRK: the Ergun equation uses VoFlRa0/CrSeAr while convection uses
+    # its ratio to the user's vf (homoModels.py:928,1141)
+    su_ga_ve0 = p["VoFlRa0"] / cr_se_ar
+    return {
+        "mw": mw,
+        "Cmax": c_max,
+        "MiMoWe0": mi_mo_we0,
+        "GaDe0": ga_de0,
+        "GaCpMeanMix0": cp_mix0,
+        "GaMaCoTe0": ga_ma_co_te0,
+        "GaHeCoTe0": ga_he_co_te0,
+        "PeNuMa0": pe_ma0,
+        "PeNuHe0": pe_he0,
+        "SuGaVe0eq": su_ga_ve0,
+        "vDl": su_ga_ve0 / vf,
+    }
+
+
+def t3_initial_guess(spec: HomoSpec, dtype=None, device=None):
+    """Flat initial iterate: C* = 0.5, theta = 0.25 (homoModels.py:235-258)."""
+    n_layer = spec.n_comp + (0 if spec.iso_thermal else 1)
+    g = torch.full((n_layer, spec.z_no), 0.5,
+                   dtype=dtype or config.default_float(),
+                   device=config.resolve_device(device))
+    if not spec.iso_thermal:
+        g[-1] = 0.25
+    return g.reshape(-1)
+
+
+class AxialStencil:
+    """The axial stencils of an axial-dispersion model on its mesh (the
+    uniform grid, or a two_zone_mesh(...) result): the per-node weight
+    rows of ops/stencils.axial_stencil_weights (backward first
+    derivative, central second derivative), the spacing of the Danckwerts
+    inlet ghost (dz_bc1), and the dz of the Ergun march, which stays the
+    UNIFORM-zone dz on a refined mesh, as the reference keeps it
+    (homoModels.py:963). The weight tables go to a device once per dtype
+    and device."""
+
+    def __init__(self, z_no: int, mesh=None):
+        ws = _stencils.axial_stencil_weights(z_no, mesh)
+        self.weights = DeviceTables(W1=ws["W1"], W2=ws["W2"])
+        self.dz_bc1 = ws["dz_bc1"]
+        self.dz = (float(mesh["dz_uniform"]) if mesh is not None
+                   else 1.0 / (z_no - 1))
+
+    def derivatives(self, F, ghost):
+        """(dF/dz, d2F/dz2) of profiles F (..., zNo) with the inlet ghost
+        value(s) ghost and the zero-gradient outlet mirror."""
+        w = self.weights(F)
+        return (_stencils.apply_axial_weights(w["W1"], F, ghost),
+                _stencils.apply_axial_weights(w["W2"], F, ghost))
+
+    def ergun_pressure(self, p, d, ga_de):
+        """The Ergun pressure at every node: no P feedback, so a prefix
+        sum (homoModels.py:950-966, pbReactor.py:8231-8240)."""
+        eps = p["BeVoFr"]
+        su0 = d["SuGaVe0eq"]
+        erg_a = 150 * p["GaViMix0"] * su0 / p["PaDi"] ** 2
+        erg_b = (1 - eps) ** 2 / eps**3
+        erg_c = 1.75 * ga_de * su0**2 / p["PaDi"]       # (zNo,)
+        erg_d = (1 - eps) / eps**3
+        rhs_erg = -(erg_a * erg_b + erg_c * erg_d)
+        return p["P0"] + self.dz * torch.cat(
+            [torch.zeros_like(rhs_erg[:1]), torch.cumsum(rhs_erg[:-1], 0)])
+
+    def mass_ghost(self, p, d, c):
+        """The Danckwerts inlet ghost of the dimensionless concentrations
+        c (n_comp, zNo), (n_comp, 1)."""
+        inv_m = 1.0 / (d["PeNuMa0"] * self.dz_bc1)      # (n_comp,)
+        c_in = p["SpCoi0"] / d["Cmax"]
+        return ((c_in + inv_m * c[:, 1]) / (inv_m + 1.0))[:, None]
+
+    def heat_ghost(self, d, T_dl):
+        """The Danckwerts inlet ghost of the dimensionless temperature
+        (T*_in = 0)."""
+        inv_h = 1.0 / (d["PeNuHe0"] * self.dz_bc1)
+        return (inv_h * T_dl[1]) / (inv_h + 1.0)
+
+
+def make_t3_residual(spec: HomoSpec, mesh=None):
+    """Steady residual F(y) of the axial-dispersion model, vectorized over
+    the z nodes (mirrors modelEquationT1, homoModels.py:540-1421).
+
+    Stencils (solverSetting['T1']: dFdz=BD, d2Fdz2=CD) as per-node weight
+    rows (AxialStencil): backward first derivative (non-uniform in the
+    dense zone of a refined mesh), central second derivative with a
+    Danckwerts ghost node at the inlet and a zero-gradient mirror at the
+    outlet; the raw (unclamped) state feeds the stencils while kinetics
+    and properties see EPS-clamped concentrations (homoModels.py:885-894).
+
+    mesh: a two_zone_mesh(...) result for solver-config mesh != "normal"
+    (reference FiDiMeshGenerator path, homoModels.py:149-161); None for
+    the uniform grid.
+    """
+    n_comp = spec.n_comp
+    z_no = spec.z_no
+    n_layer = n_comp + (0 if spec.iso_thermal else 1)
+    ax = AxialStencil(z_no, mesh)
+    tables = DeviceTables(nu=spec.stoich.nu_comp)
+
+    def residual(y, p, d):
+        Y = y.reshape(n_layer, z_no)
+        c_raw = Y[:n_comp]
+        T_dl = Y[n_comp] if not spec.iso_thermal else torch.zeros(
+            (z_no,), dtype=y.dtype, device=y.device)
+
+        c_cl = torch.clamp(c_raw, min=EPS_CONST)
+        co_spi_re = c_cl * d["Cmax"]                    # (n_comp, zNo) kmol/m^3
+        co_sp_re = torch.sum(co_spi_re, dim=0)
+        T_re = T_dl * p["T0"] + p["T0"]
+        mo_fri = co_spi_re / co_sp_re
+        mi_mo_we = thermo.mixture_molecular_weight(mo_fri.T, d["mw"],
+                                                   "kg/mol")
+        ga_de = thermo.density_ig(mi_mo_we, co_sp_re * 1000.0)
+        ga_de_dl = ga_de / d["GaDe0"]
+        P_z = ax.ergun_pressure(p, d, ga_de)
+
+        # kinetics at every node (homoModels.py:1023-1037)
+        r0 = spec.rates(T_re, P_z, mo_fri, co_spi_re,
+                        p["kinetic_overrides"]).to(y.dtype)  # (n_rxn, zNo)
+        ri = torch.einsum("mk,mz->kz", tables(y)["nu"], r0)
+
+        cp_mean_i = thermo.cp_mean(T_re, spec.comp_idx)
+        cp_mix = torch.sum(mo_fri.T * cp_mean_i, dim=-1)
+        cp_mix_dl = cp_mix / d["GaCpMeanMix0"]
+        ov_he_re_t = torch.sum(r0.T * _reaction_energetics(spec, T_re),
+                               dim=-1)
+        # Qm in kJ/m^3.s with the user's EfHeTrAr (homoModels.py:1099-1112)
+        qm = _heat_exchange(p["Tm"], T_re, p["U"], p["EfHeTrAr"]) * 1e-3
+
+        eps = p["BeVoFr"]
+        v_dl = d["vDl"]
+        dcdz, d2c = ax.derivatives(c_raw, ax.mass_ghost(p, d, c_raw))
+        res_c = (
+            -v_dl * dcdz
+            + (eps / d["PeNuMa0"])[:, None] * d2c
+            + ri / d["GaMaCoTe0"]
+        )
+
+        rows = [res_c]
+        if not spec.iso_thermal:
+            dtdz, d2t = ax.derivatives(T_dl, ax.heat_ghost(d, T_dl))
+            res_t = (
+                -v_dl * ga_de_dl * cp_mix_dl * dtdz
+                + (1.0 / d["PeNuHe0"]) * d2t
+                + (-ov_he_re_t + qm) / d["GaHeCoTe0"]
+            )
+            rows.append(res_t[None])
+
+        return torch.cat(rows, dim=0).reshape(-1)
+
+    return residual

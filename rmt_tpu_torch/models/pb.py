@@ -25,6 +25,7 @@ from ..data import species as DB
 from ..kinetics.dsl import RateProgram
 from ..kinetics.stoich import Stoichiometry
 from ..props import thermo
+from ..utils.tables import DeviceTables
 from .homo import _reaction_energetics
 
 
@@ -107,23 +108,9 @@ def build_params(model_input: Mapping[str, Any], dtype=None,
     return out
 
 
-class _Tables:
-    """The stoichiometric matrix and the molecular weights a RHS reads, as
-    tensors of the state's dtype and device (made once per dtype and
-    device)."""
-
-    def __init__(self, spec: PBSpec):
-        self.spec = spec
-        self._cache = {}
-
-    def __call__(self, like: torch.Tensor):
-        key = (like.dtype, like.device)
-        if key not in self._cache:
-            t = lambda a: torch.as_tensor(np.asarray(a), dtype=like.dtype,
-                                          device=like.device)
-            self._cache[key] = (t(self.spec.stoich.nu_comp),
-                                t(DB.MW[self.spec.comp_idx]))
-        return self._cache[key]
+def _tables(spec: PBSpec) -> DeviceTables:
+    """The stoichiometric matrix and the molecular weights a RHS reads."""
+    return DeviceTables(nu=spec.stoich.nu_comp, mw=DB.MW[spec.comp_idx])
 
 
 def _ergun(p, su_ga_ve, ga_de):
@@ -148,10 +135,11 @@ def make_m1_rhs(spec: PBSpec):
     pbReactor.py:354-547)."""
     idx = spec.comp_idx
     n_comp = spec.n_comp
-    tables = _Tables(spec)
+    tables = _tables(spec)
 
     def rhs(z, y, p):
-        nu_comp, mw = tables(y)
+        tb = tables(y)
+        nu_comp, mw = tb["nu"], tb["mw"]
         cr_se_ar = PI_CONST * p["ReInDi"] ** 2 / 4
         fi = y[:n_comp]
         flux = y[n_comp]
@@ -228,7 +216,7 @@ def _mol_balances(spec, p, tables, y, c_raw, c_clamped, T_z, co_sp, mo_fri,
     """The MoL time derivatives of M2 and M9 from their velocity field v_z
     (..., z), rates r0 (..., n_rxn, z) [kmol/m^3.s] and the extra
     concentration sink c_sink (M9's -C dv/dz, or None)."""
-    nu_comp, _ = tables(y)
+    nu_comp = tables(y)["nu"]
     dz = p["ReLe"] / (spec.z_no - 1)
     eps = p["BeVoFr"]
     ri = torch.einsum("mk,...mz->...kz", nu_comp, r0)
@@ -270,10 +258,10 @@ def make_m2_rhs(spec: PBSpec, frozen_pressure_jac: bool = False):
     frozen_pressure_jac detaches the pressure/velocity march for the
     block-bidiagonal stage-solve Jacobian."""
     z_no = spec.z_no
-    tables = _Tables(spec)
+    tables = _tables(spec)
 
     def rhs(t, y, p):
-        _, mw = tables(y)
+        mw = tables(y)["mw"]
         dz = p["ReLe"] / (z_no - 1)
         cr_se_ar = PI_CONST * p["ReInDi"] ** 2 / 4
         eps = p["BeVoFr"]
@@ -328,10 +316,11 @@ def make_m3_rhs(spec: PBSpec):
     EOS, Ergun pressure drop, Qm without the adiabatic rule."""
     idx = spec.comp_idx
     n_comp = spec.n_comp
-    tables = _Tables(spec)
+    tables = _tables(spec)
 
     def rhs(z, y, p):
-        nu_comp, mw = tables(y)
+        tb = tables(y)
+        nu_comp, mw = tb["nu"], tb["mw"]
         cr_se_ar = PI_CONST * p["ReInDi"] ** 2 / 4
         eps = p["BeVoFr"]
         sp_co0 = torch.sum(p["SpCoi0"])
@@ -380,10 +369,11 @@ def make_m4_rhs(spec: PBSpec):
     EOS, mass balance with the -Ci*dv/dz expansion term."""
     idx = spec.comp_idx
     n_comp = spec.n_comp
-    tables = _Tables(spec)
+    tables = _tables(spec)
 
     def rhs(z, y, p):
-        nu_comp, mw = tables(y)
+        tb = tables(y)
+        nu_comp, mw = tb["nu"], tb["mw"]
         conc = y[:n_comp]
         T = y[n_comp]
         P = y[n_comp + 1]
@@ -428,10 +418,11 @@ def make_m9_rhs(spec: PBSpec, frozen_march_jac: bool = False):
     kinetics receive kmol/m^3 concentrations without unit conversion; the
     velocity equation mixes a x1000 CoSp with a x1000 OvR."""
     z_no = spec.z_no
-    tables = _Tables(spec)
+    tables = _tables(spec)
 
     def rhs(t, y, p):
-        nu_comp, mw = tables(y)
+        tb = tables(y)
+        nu_comp, mw = tb["nu"], tb["mw"]
         dz = p["ReLe"] / (z_no - 1)
         cr_se_ar = PI_CONST * p["ReInDi"] ** 2 / 4
         eps = p["BeVoFr"]

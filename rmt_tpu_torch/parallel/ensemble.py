@@ -1,10 +1,11 @@
-# Ensemble execution of the homogeneous models (port of the N1/N2 slice
-# of rmt_tpu/parallel/ensemble.py).
+# Ensemble execution of the homogeneous models and the M14 design sweep
+# (port of the N1/N2 slice and run_m14_sweep of
+# rmt_tpu/parallel/ensemble.py).
 #
 # A batch of reactors -- any leaf of the parameter dict may be swept:
 # inlet T/P/composition, geometry, heat exchange, and the kinetic
 # constants through kinetic overrides -- integrates as one ensemble on one
-# device. Two integrators:
+# device. Three entry points:
 #
 #   * run_n2_ensemble / make_n2_ensemble / make_n1_ensemble: the
 #     reference's jax.vmap of the sequential radau.odeint (or
@@ -12,6 +13,9 @@
 #     solvers/radau.py::odeint_batched (dopri5.odeint_batched), which
 #     gives every member the result it gets alone. float64 by default
 #     (config.default_float()).
+#   * run_m14_sweep: the steady M14 solve of every member (the
+#     reference's jax.vmap of models.hetero.make_m14_runner) as
+#     radau.odeint_batched and then newton.root_batched(like_root=True).
 #   * run_n2_ensemble_lockstep: the lockstep integrator in float32. Stage
 #     residuals go through the fused N2 RHS (ops/cuda_rhs.py: the
 #     generated CUDA kernel for tensors on the card, its plain twin on
@@ -28,6 +32,7 @@
 
 from __future__ import annotations
 
+import time
 from typing import Any, Mapping, NamedTuple
 
 import numpy as np
@@ -426,3 +431,83 @@ def _run_microbatches(model_input, sweep, b_total, k, kw):
         torch.cat(vals) if isinstance(vals[0], torch.Tensor) else sum(vals)
         for vals in zip(*(p[1] for p in parts))])
     return ys, stats
+
+
+def run_m14_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
+                  mesh=None, device=None, timings=None):
+    """Design-space sweep of the M14 steady heterogeneous reactor
+    (rmt_tpu's run_m14_sweep: jax.vmap of models.hetero.make_m14_runner),
+    in config.default_float() on ``device`` (default: the CUDA card;
+    without one it raises, see config.resolve_device).
+
+    Every member runs the single runner's solve: pseudo-transient
+    continuation from the feed profile on the row-scaled residual
+    (radau.odeint_batched to pseudo-time 20, rtol 1e-7, atol 1e-10), then
+    a damped-Newton polish per rampList entry (newton.root_batched with
+    like_root, max_iter 60, tol 1e-8), each member as it runs alone.
+    Swept leaves may be operating conditions ("T0", "P0", "vf", ...) or
+    kinetic-override constants. Honors solver-config mesh/zNo/rampList
+    like rmtExe. timings: an optional dict to which the seconds of the
+    continuation's parts (radau.odeint_batched's keys "jacobian", "lu",
+    "newton", "other") and of the Newton polish ("polish") are added,
+    each closed by a device synchronisation.
+
+    Returns a dict: states (B, n_comp+1, 2, zNo) dimensionless
+    [gas|solid] profiles, converged (B,) bool, res_norm (B,).
+    """
+    from ..models import hetero
+    from ..ops import stencils
+    from ..solvers import newton
+
+    _no_mesh(mesh)
+    device = config.resolve_device(device)
+    zmesh, z_no = stencils.solver_grid(model_input, 30)
+    ramp_list = hetero.m14_ramps(model_input)
+    spec = hetero.m14_build_spec(model_input, z_no=z_no)
+    params, axes = batch_params(
+        hetero.m14_params(model_input, device=device), sweep)
+    res_fn = hetero.make_m14_residual(spec, mesh=zmesh)
+
+    def derive(q):
+        d = hetero.m14_feed(spec, q)
+        return d, hetero.m14_row_scales(spec, q, d), \
+            hetero.m14_initial_state(spec, q, d)
+
+    d, S, y0 = vmap(derive, in_dims=(axes,))(params)
+    Bsz, n = y0.shape
+    # the three Radau stages of every member as one batch of 3B rows (row
+    # 3b + i is stage i of member b)
+    p3 = _repeat(params, axes, 3)
+    d3 = {k: v.repeat_interleave(3, dim=0) for k, v in d.items()}
+    S3 = S.repeat_interleave(3, dim=0)
+    res_b = vmap(res_fn, in_dims=(0, axes, 0, None))
+
+    ramp0 = ramp_list[0]
+    ys, _ = radau.odeint_batched(
+        lambda t, y: res_b(y, params, d, ramp0) / S, y0,
+        torch.tensor([0.0, 20.0], dtype=y0.dtype, device=device),
+        rtol=1e-7, atol=1e-10,
+        f_stages=lambda t_st, Y: (res_b(Y.reshape(-1, n), p3, d3, ramp0)
+                                  / S3).reshape(Y.shape),
+        timings=timings)
+    t0 = time.perf_counter()
+    x = ys[:, -1]
+    converged = torch.ones(Bsz, dtype=torch.bool, device=device)
+    res_norm = torch.zeros(Bsz, dtype=x.dtype, device=device)
+    for ramp in ramp_list:
+        sol = newton.root_batched(
+            lambda yy, r=ramp: res_b(yy, params, d, r) / S, x, max_iter=60,
+            n_backtrack=8, tol=1e-8, like_root=True)
+        x = sol.x
+        converged = converged & sol.converged
+        res_norm = torch.maximum(res_norm, sol.residual_norm)
+    if timings is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings["polish"] = (timings.get("polish", 0.0)
+                             + time.perf_counter() - t0)
+    return {
+        "states": x.reshape(Bsz, spec.n_comp + 1, 2, spec.z_no),
+        "converged": converged,
+        "res_norm": res_norm,
+    }

@@ -113,13 +113,19 @@ def root(f, x0, args=None, max_iter: int = 50, n_backtrack: int = 8,
 
 
 def root_batched(f, x0, max_iter: int = 30, n_backtrack: int = 6,
-                 jac=None, tol=1e-10, damping_init=1.0, block=None):
+                 jac=None, tol=1e-10, damping_init=1.0, block=None,
+                 like_root: bool = False):
     """Damped Newton on a BATCH of independent systems, lockstep.
 
     A fixed budget of max_iter iterations with per-member masking: a
     member that has converged keeps its state (its residual is not
     re-evaluated into it) and its iteration count. Nothing is read back
     to the host inside the loop.
+
+    like_root=True gives every member what root gives it alone (jax.vmap
+    of rmt_tpu's root): convergence is tested after each iteration, not
+    at x0, and the loop ends once every member has converged (one flag
+    read by the host an iteration).
 
     f: batched residual f(x (B, n)) -> (B, n) (close per-member
     parameters over it); members must be independent.
@@ -129,23 +135,26 @@ def root_batched(f, x0, max_iter: int = 30, n_backtrack: int = 6,
     "tridiag"])) are not ported; any value other than None raises.
 
     Convergence per member: ||f||_rms < tol * (1 + ||x||_inf), also at
-    x0. Returns NewtonResult of batched fields ((B, n), (B,), (B,) int32,
+    x0 unless like_root. Returns NewtonResult of batched fields ((B, n), (B,), (B,) int32,
     (B,) bool).
     """
     if block is not None:
         raise NotImplementedError(
             "root_batched(block=...) needs the block solves of "
             "ops/block_solve.py, which rmt_tpu_torch ports with the "
-            "heterogeneous dynamic models (ROADMAP queue 1, item 7); use "
-            "block=None for the dense solve")
+            "dynamic heterogeneous models M10-M13 (ROADMAP queue 1, item "
+            "1, hetero_dyn); use block=None for the dense solve")
     x = torch.as_tensor(x0)
     if jac is None:
         jac = _dense_jacobian(f)
     fx = f(x)
     fn = _rms(fx)
-    done = _converged(fn, x, tol)
+    done = (torch.zeros_like(fn, dtype=torch.bool) if like_root
+            else _converged(fn, x, tol))
     it = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
     for _ in range(max_iter):
+        if like_root and bool(done.all()):
+            break
         dx = _newton_step(f, jac, x, fx)
         x_new, fx_new, fn_new = _damped_step(f, x, fx, fn, dx, n_backtrack,
                                              damping_init)

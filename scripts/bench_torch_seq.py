@@ -2,10 +2,12 @@
 """The port's sequential path on one CUDA card: rmtExe for N1 and N2 and
 the vmapped N2 ensemble (BASELINE config #4), all in float64 on the
 member-batched Radau integrator (rmt_tpu_torch.solvers.radau); with
---models, rmtExe for the packed-bed, plug-flow and batch models instead.
+--models, rmtExe for the other models instead; with --m14-sweep, the M14
+design sweep.
 
     python3 scripts/bench_torch_seq.py [--b B ...] [--skip-api]
     python3 scripts/bench_torch_seq.py --models
+    python3 scripts/bench_torch_seq.py --m14-sweep B [B ...]
 
   rmtExe N2  the DME case (zNo 20, n = 140, tNo 5, period 0.5, solver
              defaults rtol 1e-7 / atol 1e-10) at the first probe
@@ -45,7 +47,24 @@ float64, scripts/gen_models_ref.py):
              host's integrator glue);
   steady     rmtExe M0, M1, M3, M4, M7 and M8 (the sequential Radau
              integrator on one state of 7 to 9 entries), a first and a
-             warm call each; XYList rows and dataYs within 1e-6 relative.
+             warm call each; XYList rows and dataYs within 1e-6 relative;
+  hetero     rmtExe T1 (FDM, rNo 7, period 5 s, rtol 1e-3: the Radau
+             integrator through the explosive early transient), T2 by
+             FDM, OC and OCFE (Newton), T3 (zNo 10) and M14 (zNo 30, n =
+             420: Radau pseudo-transient continuation, then Newton) and M5
+             (Radau), the inputs of rmt_tpu_torch/cases/hetero_case.py, a
+             first and a warm call each, the first call's Radau attempts
+             and Newton iterations; XYList rows and dataYs within 1e-6
+             relative, T1's checkpoint state too and its attempts within
+             1.25 times the reference's.
+
+With --m14-sweep B (hetero_case's M14 at zNo 30, T0 = 523 +
+linspace(0, 20, B) with models_ref.npz's three inlet temperatures at
+members 0, B // 2 and B - 1; one call each): wall, members/s, the wall's
+split into the pseudo-transient continuation's Jacobians, LU
+factorisations, Newton sweeps and the rest (radau.odeint_batched's
+timings) and the Newton polish (root_batched), peak device memory; every
+member converged, the three members within 1e-6 of models_ref.npz.
 
 Prints one line and one JSON line per part, with the card's name and
 power limit. Exits nonzero when a check fails (an unreached output time,
@@ -239,6 +258,155 @@ def steady_model(torch, device, model, ref, warm=True):
                 ok=bool(err <= BAR_STEADY and np.isfinite(xy).all()))
 
 
+# rmtExe of the particle, axial-dispersion and steady heterogeneous models
+# (rmt_tpu_torch/cases/hetero_case.py's inputs); "T2 oc" and "T2 fem" are
+# T2 by those numerical methods
+HETERO_MODELS = ("T1", "T2", "T2 oc", "T2 fem", "T3", "M5", "M14")
+# the inlet temperatures of models_ref.npz's M14 sweep rows: 523 K, the
+# middle member of 523 + linspace(0, 20, 256) and 543 K
+M14_SWEEP_T0 = (523.0, 523.0 + 20.0 * 128 / 255, 543.0)
+
+
+def hetero_input(part):
+    """The modelInput of a HETERO_MODELS entry."""
+    from rmt_tpu_torch.cases import hetero_case
+
+    model, _, method = part.partition(" ")
+    if model == "T2":
+        return hetero_case.t2_model_input(method or None)
+    return hetero_case.model_input(model)
+
+
+def ref_key(part):
+    """models_ref.npz's key prefix of a HETERO_MODELS entry (t2_oc, ...)."""
+    return part.lower().replace(" ", "_")
+
+
+class solver_counts:
+    """Counts the attempts of every radau.odeint call and the iterations
+    of every newton.root call made inside the block into a dict
+    ("attempts", "newton_iterations"); it reads each call's statistics
+    once the call has returned."""
+
+    def __init__(self, acc):
+        self.acc = acc
+
+    def __enter__(self):
+        from rmt_tpu_torch.solvers import newton, radau
+
+        self.saved = (radau.odeint, newton.root)
+        odeint, root = self.saved
+        acc = self.acc
+
+        def counted_odeint(*a, **kw):
+            ys, st = odeint(*a, **kw)
+            acc["attempts"] = acc.get("attempts", 0) + int(
+                st.n_accepted + st.n_rejected)
+            return ys, st
+
+        def counted_root(*a, **kw):
+            sol = root(*a, **kw)
+            acc["newton_iterations"] = acc.get("newton_iterations", 0) + int(
+                sol.iterations)
+            return sol
+
+        radau.odeint, newton.root = counted_odeint, counted_root
+        return acc
+
+    def __exit__(self, *exc):
+        from rmt_tpu_torch.solvers import newton, radau
+
+        radau.odeint, newton.root = self.saved
+
+
+def hetero_model(torch, device, part, ref, warm=True):
+    """rmtExe of a HETERO_MODELS entry (a first call and, with warm, a
+    second) against models_ref.npz: XYList rows and dataYs within 1e-6
+    relative; T1 also its checkpoint state, and its attempts within
+    ATTEMPTS_RATIO of the reference's. Records the first call's radau
+    attempts and Newton iterations; M14's record carries its gas
+    concentrations (co_gas) for the sweep's member 0."""
+    from rmt_tpu_torch import rmtExe
+
+    counts = {}
+    with solver_counts(counts):
+        first, res = timed(torch, lambda: rmtExe(hetero_input(part),
+                                                 device=device))
+    if warm:
+        warm, res = timed(torch, lambda: rmtExe(hetero_input(part),
+                                                device=device))
+    res = res["resModel"]
+    key = ref_key(part)
+    xy = np.stack([np.asarray(r[1], np.float64) for r in res["XYList"]])
+    err = max_rel(xy, ref[f"{key}_xy"])
+    if f"{key}_data_ys" in ref:
+        err = max(err, max_rel(res["dataYs"], ref[f"{key}_data_ys"]))
+    out = dict(part=f"rmtExe {part}", n_var=int(xy.shape[0]),
+               points=int(xy.shape[1]), first_s=first, warm_s=warm, **counts)
+    ok = True
+    if part == "T1":
+        st = res["solverStats"]
+        att = st["n_accepted"] + st["n_rejected"]
+        ref_att = int(ref["t1_attempts"].sum())
+        err = max(err, max_rel(res["checkpoint"]["state"], ref["t1_state"]))
+        out.update(attempts=att, ref_attempts=ref_att,
+                   accepted=st["n_accepted"], rejected=st["n_rejected"],
+                   ref_accepted=int(ref["t1_attempts"][0]),
+                   ref_rejected=int(ref["t1_attempts"][1]))
+        ok = (st["n_unreached"] == 0 and ref_att / ATTEMPTS_RATIO <= att
+              <= ATTEMPTS_RATIO * ref_att)
+    if part == "M14":
+        out["co_gas"] = np.asarray(res["dataPack"][0]["dataYCoGas"]).tolist()
+    finite = bool(np.isfinite(xy).all())
+    out.update(max_rel_err=err, bar=BAR_STEADY, finite=finite,
+               ok=bool(ok and err <= BAR_STEADY and finite))
+    return out
+
+
+def m14_sweep_t0(b):
+    """The sweep's inlet temperatures: 523 + linspace(0, 20, b) with
+    M14_SWEEP_T0 at members 0, b // 2 and b - 1."""
+    t0 = 523.0 + np.linspace(0.0, 20.0, b)
+    t0[[0, b // 2, b - 1]] = M14_SWEEP_T0
+    return t0
+
+
+def m14_sweep(torch, device, b, ref, co_gas=None):
+    """run_m14_sweep at b members over m14_sweep_t0(b) (M14 at zNo 30, one
+    call): wall split into the pseudo-transient continuation's Jacobians,
+    LU factorisations, Newton sweeps and the rest, and the Newton polish
+    (run_m14_sweep's timings), members/s, peak device memory; every member converged
+    and finite, members 0, b // 2 and b - 1 within 1e-6 of models_ref.npz's
+    rows (rel_err, bench.py's floor 1e-7), and, given co_gas (rmtExe M14's
+    gas concentrations on the card), member 0 within 1e-6 of it."""
+    from rmt_tpu_torch.cases import hetero_case
+    from rmt_tpu_torch.parallel import run_m14_sweep
+
+    mi = hetero_case.m14_model_input()
+    split = {}
+    torch.cuda.reset_peak_memory_stats()
+    wall, out = timed(torch, lambda: run_m14_sweep(
+        mi, {"T0": m14_sweep_t0(b)}, device=device, timings=split))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    states = out["states"].cpu().numpy()
+    converged = int(out["converged"].sum())
+    finite = bool(np.isfinite(states).all())
+    err = float(rel_err(states[[0, b // 2, b - 1]],
+                        ref["m14_sweep_states"]).max())
+    rec = dict(part="run_m14_sweep", B=b, n=int(states[0].size), wall_s=wall,
+               members_per_sec=b / wall, split_s=split, peak_gib=peak,
+               converged=converged, res_norm_max=float(out["res_norm"].max()),
+               finite=finite, max_rel_err=err, bar=BAR_STEADY)
+    ok = converged == b and finite and err <= BAR_STEADY
+    if co_gas is not None:
+        c_max = float(np.max(mi["feed"]["concentration"]))
+        e0 = max_rel(states[0, :-1, 0] * c_max, np.asarray(co_gas))
+        rec["member0_vs_rmtexe"] = e0
+        ok = ok and e0 <= BAR_STEADY
+    rec["ok"] = bool(ok)
+    return rec
+
+
 def _timed_calls(torch, fn, acc, key):
     """fn, with each call closed by device synchronisations and its wall
     added to acc[key]."""
@@ -338,7 +506,9 @@ def main():
     ap.add_argument("--skip-api", action="store_true",
                     help="only the ensemble")
     ap.add_argument("--models", action="store_true",
-                    help="only rmtExe M2 and the steady and batch models")
+                    help="only rmtExe of the models other than N1/N2")
+    ap.add_argument("--m14-sweep", type=int, nargs="+", metavar="B",
+                    help="only run_m14_sweep at these member counts")
     args = ap.parse_args()
     sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
     import rmt_tpu_torch  # noqa: F401 (its import turns TF32 off: header)
@@ -349,10 +519,15 @@ def main():
           f"{torch.backends.cuda.preferred_linalg_library()}", flush=True)
     device = torch.device("cuda:0")
     parts = []
-    if args.models:
+    if args.m14_sweep:
+        ref = models_ref()
+        parts += [m14_sweep(torch, device, b, ref) for b in args.m14_sweep]
+    elif args.models:
         ref = models_ref()
         parts.append(rmtexe_m2(torch, device, ref))
         parts += [steady_model(torch, device, m, ref) for m in STEADY_MODELS]
+        parts += [hetero_model(torch, device, m, ref)
+                  for m in HETERO_MODELS]
     elif args.skip_api:
         parts += [ensemble(torch, b, device) for b in args.b]
     else:
@@ -368,8 +543,8 @@ def main():
         parts.append(rmtexe_n1(torch, device, ref))
     for r in parts:
         r.update(card=card, device=torch.cuda.get_device_name(0))
-        print(" ".join(f"{k}={v}" for k, v in r.items() if k != "stats"),
-              flush=True)
+        print(" ".join(f"{k}={v}" for k, v in r.items()
+                       if k not in ("stats", "co_gas")), flush=True)
         print(json.dumps(r), flush=True)
     if not all(r["ok"] for r in parts):
         raise SystemExit("bench_torch_seq: FAILED (an unreached output "

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Regenerate models_ref.npz: rmt_tpu's rmtExe on the CPU in float64 for
-the packed-bed, plug-flow and batch models, the oracle that chip_smoke.py
-holds rmt_tpu_torch's rmtExe to on the card.
+every model but N1, N2, M9 and M10-M13, and rmt_tpu's M14 design sweep,
+the oracle that chip_smoke.py holds rmt_tpu_torch to on the card.
 
     python3 scripts/gen_models_ref.py [--out models_ref.npz]
 
-Inputs: rmt_tpu_torch/cases/pb_case.py (the inputs of rmt_tpu's own tests
-of these models). For M0, M1, M3, M4, M7 and M8 the file holds the
-result's XYList rows (<id>_xy, (rows, points)) and, where the result has
-one, dataYs (<id>_data_ys); for M2 at its default grid (zNo 100, tNo 10)
-dataPacktime (m2_packtime, (7, 10, 100)), the final state (m2_state) and
-the integrator's accepted and rejected attempts (m2_attempts). M9 is not
-in the file: rmt_tpu's M9 run exhausts its attempt budget. About 25 s.
+Inputs: rmt_tpu_torch/cases/pb_case.py and hetero_case.py (the inputs of
+rmt_tpu's own tests of these models). For M0, M1, M3, M4, M7 and M8, and
+for T1, T2 (by FDM, OC and OCFE: t2, t2_oc, t2_fem), T3, M5 and M14 at
+their default grids, the file holds the result's XYList rows (<key>_xy,
+(rows, points)) and, where the result has one, dataYs (<key>_data_ys);
+for T1 (period 5 s) also the final state (t1_state) and the integrator's
+accepted and rejected attempts (t1_attempts); for M2 at its default grid
+(zNo 100, tNo 10) dataPacktime (m2_packtime, (7, 10, 100)), the final
+state (m2_state) and the attempts (m2_attempts); run_m14_sweep at zNo 30
+over the inlet temperatures of scripts/bench_torch_seq.M14_SWEEP_T0
+(m14_sweep_t0 (3,), m14_sweep_states (3, 7, 2, 30)). M9 is not in the
+file: rmt_tpu's M9 run exhausts its attempt budget. About 2 minutes.
 """
 
 import argparse
@@ -36,7 +41,13 @@ def main():
     import numpy as np
 
     from rmt_tpu import rmtExe
+    from rmt_tpu.parallel import run_m14_sweep
+    from rmt_tpu_torch.cases import hetero_case
     from rmt_tpu_torch.cases.pb_case import model_input
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from bench_torch_seq import (HETERO_MODELS, M14_SWEEP_T0, hetero_input,
+                                 ref_key)
 
     out = {}
     for model in (*STEADY, "M2"):
@@ -55,6 +66,27 @@ def main():
             if "dataYs" in res:
                 out[f"{key}_data_ys"] = np.asarray(res["dataYs"])
         print(f"{model}: {time.perf_counter() - t0:.1f} s", flush=True)
+    for part in HETERO_MODELS:
+        t0 = time.perf_counter()
+        res = rmtExe(hetero_input(part))["resModel"]
+        key = ref_key(part)
+        out[f"{key}_xy"] = np.stack(
+            [np.asarray(xy[1], np.float64) for xy in res["XYList"]])
+        if "dataYs" in res:
+            out[f"{key}_data_ys"] = np.asarray(res["dataYs"])
+        if part == "T1":
+            st = res["solverStats"]
+            out["t1_state"] = np.asarray(res["checkpoint"]["state"])
+            out["t1_attempts"] = np.asarray([st["n_accepted"],
+                                             st["n_rejected"]])
+        print(f"{part}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    sweep = run_m14_sweep(hetero_case.m14_model_input(),
+                          {"T0": np.asarray(M14_SWEEP_T0)})
+    assert bool(np.all(np.asarray(sweep["converged"])))
+    out["m14_sweep_t0"] = np.asarray(M14_SWEEP_T0)
+    out["m14_sweep_states"] = np.asarray(sweep["states"])
+    print(f"M14 sweep: {time.perf_counter() - t0:.1f} s", flush=True)
     np.savez_compressed(args.out, **out)
     print(f"wrote {args.out}: " + ", ".join(
         f"{k} {v.shape}" for k, v in out.items()))

@@ -138,7 +138,7 @@ def test_fixed_stepper_divergence_raises():
         t_exe(mi)
 
 
-@pytest.mark.parametrize("model", ["M5", "T1", "M13"])
+@pytest.mark.parametrize("model", ["M10", "M11", "M13"])
 def test_unported_model_id_raises_not_implemented(model):
     mi = make_model_input(model=model)
     with pytest.raises(NotImplementedError, match="port"):
