@@ -132,7 +132,29 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      Newton polish, members/s, peak device memory): every member
      converged and finite, those three members within 1e-6 of
      models_ref.npz, member 0 within 1e-6 of the child's rmtExe M14 on the
-     card; counts reset just before the phase, all 0 after it.
+     card; counts reset just before the phase, all 0 after it;
+ 13. dyn_het, the dynamic heterogeneous models
+     (rmt_tpu_torch/cases/hetero_case.py's dyn_model_input), which launch
+     none of the kernels: rmtExe M10 (zNo 10, tNo 2, 0.02 s), M11 and M13
+     (zNo 10, rNo 7, tNo 5, 5 s: n = 560 and the split driver) and M12
+     (zNo 10, tNo 2, 4e-3 s from the physical startup state) in a child
+     process, and M13 over two chained 2.5 s runs (two intervals each)
+     against one 5 s run of four in a second, both started with phase
+     11's: every dataPack row and checkpoint within 1e-6 of
+     models_ref.npz (rmt_tpu, CPU float64) as |d| / (|ref| + 1e-3)
+     (bench_torch_seq.DYN_FLOOR says why; the floor-1e-7 error and the
+     absolute one printed beside it), M10-M12's Radau attempts within
+     1.25 times the reference's, the chained resume within 1e-6 of the
+     single run, and no kernel launched in either child; in this process
+     the M13 lockstep sweep at M13_SWEEP_B members (T0 = 523 +
+     linspace(0, 8, B), models_ref.npz's three inlet temperatures at
+     members 0, B // 2 and B - 1: every member converged, none with an
+     unreached output time, those three within rtol 2e-4, atol 1e-8 of
+     rmt_tpu's lockstep engine, the gap printed) and run_m11_sweep at
+     M11_SWEEP_B members (member 0 within 1e-6 of the child's rmtExe
+     M11), each with its wall, members/s, peak device memory (and the M13
+     sweep's rescued intervals); counts reset just before the phase, all
+     0 after it.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -182,6 +204,8 @@ F32_WIDE_KERNELS = ("ns_fused_step_wide", "n2_rhs_plain")
 M2_KERNELS = ("block_factor", "block_apply", "block_apply_real")
 # the steady_het phase: run_m14_sweep at M14_SWEEP_B members
 M14_SWEEP_B = 256
+# the dyn_het phase: the M13 lockstep sweep and run_m11_sweep
+M13_SWEEP_B, M11_SWEEP_B = 256, 8
 # the microbatch check: MICRO_B members in slices of MICROBATCH
 MICRO_B, MICROBATCH = 512, 256
 # the seq phase: explicit steppers at SEQ_B members, STEPS fixed steps
@@ -1487,6 +1511,114 @@ def steady_het_phase(torch, np, bench_seq, counts, dev, het_proc):
     say(f"steady_het: phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
+def start_dyn_models(calls):
+    """A child process running calls, expressions of
+    scripts/bench_torch_seq (as b) with torch, dev and ref bound, on the
+    card while this process works (rmtExe of the dynamic heterogeneous
+    models, M13's chained resume); it writes a JSON object of their
+    records and of the kernel launches of its process to its stdout."""
+    code = "\n".join((
+        f"import sys, json; sys.path[:0] = [{ROOT!r}, "
+        f"{os.path.join(ROOT, 'scripts')!r}]",
+        "import torch",
+        "import bench_torch_seq as b",
+        "from rmt_tpu_torch.ops import cuda_block, cuda_ns, cuda_rhs",
+        "dev = torch.device('cuda:0')",
+        "ref = b.models_ref()",
+        f"out = [{', '.join(calls)}]",
+        "launches = {k: v for c in (cuda_block, cuda_ns, cuda_rhs) "
+        "for k, v in c.LAUNCHES.items()}",
+        "print(json.dumps({'records': out, 'launches': launches}))"))
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+# the dyn_het phase's two children: the four models, and M13's chained
+# resume (three M13 runs), side by side
+DYN_CHILDREN = (
+    [f"b.dyn_model(torch, dev, {m!r}, ref, warm=False)"
+     for m in ("M10", "M11", "M12", "M13")],
+    ["b.m13_resume(torch, dev)"],
+)
+
+
+def dyn_het_phase(torch, np, bench_seq, counts, dev, dyn_procs):
+    """The dynamic heterogeneous models, the M13 lockstep sweep and the
+    M11 sweep on the card (see the module docstring, phase 13): every
+    check exits nonzero; no kernel may launch."""
+    t_phase = time.perf_counter()
+    reset_counts(counts)
+    ref = bench_seq.models_ref()
+    r = bench_seq.m13_sweep(torch, dev, M13_SWEEP_B, ref)
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in r["split_s"].items())
+    say(f"dyn_het: run_m13_sweep lockstep B {r['B']} (zNo 10, rNo 7, tNo 5):"
+        f" wall {r['wall_s']:.3f} s ({split}), {r['members_per_sec']:.3f} "
+        f"members/s, peak {r['peak_gib']:.3f} GiB; converged "
+        f"{r['converged']}/{r['B']}, unreached {r['unreached']}, rescued "
+        f"intervals {r['rescued_intervals']}; members 0, {r['B'] // 2}, "
+        f"{r['B'] - 1} against rmt_tpu's lockstep engine: gas gap "
+        f"{r['gap']['gas']['abs']:.3e} abs, {r['gap']['gas']['rel']:.3e} "
+        f"rel, solid gap {r['gap']['solid']['abs']:.3e} abs, "
+        f"{r['gap']['solid']['rel']:.3e} rel (bar {r['bar']})")
+    check(r["ok"], f"dyn_het: the M13 lockstep sweep failed its check: {r}")
+    r11 = bench_seq.m11_sweep(torch, dev, M11_SWEEP_B)
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in r11["split_s"].items())
+    say(f"dyn_het: run_m11_sweep B {r11['B']} (zNo 10, rNo 7, n "
+        f"{r11['n']}): wall {r11['wall_s']:.3f} s ({split}), "
+        f"{r11['members_per_sec']:.3f} members/s, peak "
+        f"{r11['peak_gib']:.3f} GiB, attempts mean "
+        f"{r11['attempts_mean']:.1f} max {r11['attempts_max']}, unreached "
+        f"{r11['unreached']}")
+    check(r11["ok"], "dyn_het: the M11 sweep failed its check: " + json.dumps(
+        {k: v for k, v in r11.items() if k != "state"}))
+
+    state_m11 = None
+    for proc in dyn_procs:
+        t0 = time.perf_counter()
+        sout, serr = proc.communicate(timeout=1200)
+        check(proc.returncode == 0, "dyn_het: a model child failed: "
+              + serr.decode(errors="replace")[-2000:])
+        say(f"dyn_het: model child ready (waited "
+            f"{time.perf_counter() - t0:.1f} s)")
+        child = json.loads(sout.decode().strip().splitlines()[-1])
+        for c in child["records"]:
+            extra = ""
+            if "ref_attempts" in c:
+                extra = (f", attempts {c['attempts']} ({c['accepted']} "
+                         f"accepted, {c['rejected']} rejected; reference "
+                         f"{c['ref_attempts']}; bar x "
+                         f"{bench_seq.ATTEMPTS_RATIO})")
+            wall = (f"wall {c['first_s']:.3f} s (its process's first "
+                    f"call), peak {c['peak_gib']:.3f} GiB" if "first_s" in c
+                    else f"wall {c['wall_s']:.3f} s")
+            say(f"dyn_het: {c['part']}: {wall}, "
+                f"error {c['max_rel_err']:.4e} (|d| / (|ref| + "
+                f"{bench_seq.DYN_FLOOR:g}), bar {c['bar']:g}; floor 1e-7: "
+                f"{c['rel_err_1e7']:.4e}, absolute {c['max_abs_err']:.4e})"
+                f"{extra}")
+            check(c["ok"], f"dyn_het: {c['part']} failed its check: "
+                  + json.dumps({k: v for k, v in c.items() if k != "state"}))
+            state_m11 = c.get("state", state_m11)
+        say(f"dyn_het: kernel launches in the model child "
+            f"{child['launches']}")
+        check(not any(child["launches"].values()),
+              f"dyn_het: a kernel launched in a model child: "
+              f"{child['launches']}")
+    check(state_m11 is not None, "dyn_het: no rmtExe M11 record")
+    e0 = bench_seq.rel_floor(r11["state"], state_m11)
+    say(f"dyn_het: run_m11_sweep member 0 against rmtExe M11 on the card "
+        f"{e0:.4e} (|d| / (|ref| + {bench_seq.DYN_FLOOR:g}), bar "
+        f"{bench_seq.BAR_STEADY:g})")
+    check(e0 <= bench_seq.BAR_STEADY,
+          f"dyn_het: M11 sweep member 0 differs from rmtExe M11 by {e0}")
+
+    launches = {k: v for table in counts for k, v in table.items()}
+    say(f"dyn_het: kernel launches {launches} (these paths run none)")
+    check(not any(launches.values()),
+          f"dyn_het: a kernel launched on these paths: {launches}")
+    say(f"dyn_het: phase wall {time.perf_counter() - t_phase:.3f} s")
+
+
 def newton_system(torch, np, b, device):
     """(f, r, member) of b independent cubic systems x**3 + p x + C x = q
     in NEWTON_N unknowns (numpy seed SEED; p > 0 per member, C a shared
@@ -1808,7 +1940,8 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
     # and Newton solves of one state each)
     steady_proc = start_steady_models()
     het_proc = start_hetero_models()
-    children += [steady_proc, het_proc]
+    dyn_procs = [start_dyn_models(calls) for calls in DYN_CHILDREN]
+    children += [steady_proc, het_proc, *dyn_procs]
     phase("seq", seq_phase, torch, np, benches.seq, counts, dev, ref_n1)
     phase("est", est_phase, torch, np, benches.est, counts, dev)
     wide = phase("f32_wide", f32_wide_phase, torch, np, homo, mi,
@@ -1819,6 +1952,8 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
                           counts, dev, steady_proc)
     phase("steady_het", steady_het_phase, torch, np, benches.seq, counts,
           dev, het_proc)
+    phase("dyn_het", dyn_het_phase, torch, np, benches.seq, counts, dev,
+          dyn_procs)
     say("phase walls (s): " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
 

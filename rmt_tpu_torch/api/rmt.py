@@ -1,5 +1,5 @@
-# Public API: rmtExe(modelInput) / rmtCom() (port of rmt_tpu/api/rmt.py
-# for every model id but the dynamic heterogeneous M10-M13).
+# Public API: rmtExe(modelInput) / rmtCom() (port of rmt_tpu/api/rmt.py,
+# every model id of rmt_tpu).
 #
 # Same dict-in / dataPack-out contract as the reference
 # (PyREMOT/rmt.py:21-92, PyREMOT/docs/rmtCore.py:63-127): modelInput
@@ -10,10 +10,13 @@
 # sequential integrators of solvers/ (radau, dopri5, fixed.precorr3), the
 # dynamic M2 and M9 on the lockstep integrator in block mode (B = 1, the
 # block kernels of ops/cuda_block.py on the card), M5 and the dynamic
-# particle T1 on radau, and the steady T2 (newton), T3 and M14 (radau
-# pseudo-transient continuation, then newton) as root problems. Eager
-# PyTorch compiles nothing, so there is no cache of built programs.
-# M10-M13 raise NotImplementedError until their port lands.
+# particle T1 on radau, the steady T2 (newton), T3 and M14 (radau
+# pseudo-transient continuation, then newton) as root problems, the
+# coupled dynamic heterogeneous M10, M11 and M12 on radau with a two-phase
+# colored Jacobian, and M13 by operator splitting
+# (models/hetero_dyn.make_m13_driver: radau on the gas phase, radau
+# pseudo-transient continuation and newton on every node's particle).
+# Eager PyTorch compiles nothing, so there is no cache of built programs.
 # display-result "True" plots the result after the run through io/plot
 # (matplotlib on the host), as rmt_tpu does; RMT_TORCH_PROFILE=<dir>
 # writes a torch.profiler trace of the call.
@@ -37,8 +40,8 @@ from ..utils import roundNum
 
 ISO = homo.ISO_THERMAL
 
-# model ids of rmt_tpu; the port runs _PORTED and raises
-# NotImplementedError for the rest (the dynamic heterogeneous M10-M13)
+# model ids of rmt_tpu, every one of them ported (_PORTED); an id outside
+# them raises NotImplementedError
 _MODEL_IDS = {
     "M2": "dynamic packed-bed reactor, concentration variables",
     "M3": "batch reactor",
@@ -61,7 +64,7 @@ _MODEL_IDS = {
     "M14": "steady-state heterogenous packed bed, gas + lumped catalyst phase",
 }
 _PORTED = ("N1", "N2", "M0", "M1", "M2", "M3", "M4", "M5", "M7", "M8",
-           "M9", "M14", "T1", "T2", "T3")
+           "M9", "M10", "M11", "M12", "M13", "M14", "T1", "T2", "T3")
 
 _SOLVER_SETTING = {
     "N1": {"zNo": 100},
@@ -968,6 +971,229 @@ def _run_m14(model_input, opts, device, dtype):
 
 
 # ---------------------------------------------------------------------------
+# M10-M13: dynamic heterogeneous packed beds
+# ---------------------------------------------------------------------------
+
+def _hetero_dyn_tols(model_input):
+    """M10-M12's tolerance defaults, rtol 1e-5 / atol 1e-6 (rmt_tpu's: the
+    near-zero product concentrations after the seed transient make a tight
+    atol reject forever); explicit solver-config values win."""
+    sc = model_input.get("solver-config", {})
+    return float(sc.get("rtol", 1e-5)), float(sc.get("atol", 1e-6))
+
+
+def _dyn_packs(spec, ys, t_bounds, solid=None):
+    """dataPack of an M10-M12 run: ys (tNo, n) states in numpy; solid: the
+    particle profiles to report per interval ((tNo, n_comp, rNo, zNo),
+    (tNo, rNo, zNo)), by default the state's particle rows."""
+    n_comp, z_no = spec.n_comp, spec.z_no
+    packs = []
+    for i in range(spec.t_no):
+        Y = ys[i].reshape(spec.n_layer, spec.r_no + 1, z_no)
+        conc_gas = Y[:n_comp, 0, :]
+        temp_gas = Y[n_comp, 0, :][None]
+        mo_fri = conc_gas / np.sum(conc_gas, axis=0)
+        packs.append({
+            "successStatus": True,
+            "dataTime": t_bounds[i + 1],
+            "dataYCon": conc_gas,
+            "dataYTemp": temp_gas,
+            "dataYs": np.concatenate([mo_fri, temp_gas], axis=0),
+            "dataYCons": (Y[:n_comp, 1:, :] if solid is None
+                          else solid[0][i]),
+            "dataYTemps": (Y[n_comp, 1:, :] if solid is None
+                           else solid[1][i]),
+        })
+    return packs
+
+
+def _dyn_result(spec, packs, data_xs, x_label, opts, start, extra):
+    labels = list(spec.comp_list) + ["Temperature"]
+    xy_list, data_list = _xy_result(data_xs, packs[-1]["dataYs"], labels,
+                                    opts, x_label)
+    return {"XYList": xy_list, "dataList": data_list, "dataPack": packs,
+            "computation-time": roundNum(timer() - start), **extra}
+
+
+def _run_coupled_dyn(model_input, opts, device, dtype, model_id):
+    """M10, M11 or M12: one stiff MoL system over (noLayer, rNo+1, zNo),
+    gas row + particle rows, integrated across the tNo output intervals in
+    one multi-segment Radau run with the two-phase colored Jacobian
+    (rmt_tpu's column colors by forward mode; here row colors by reverse
+    mode, ops/jacobian.two_phase_row_coloring: the same matrix).
+
+    M11 (reference pbReactor.runM7): the FDM particle, rNo from
+    solver-config (default 7), zNo 10, tNo 5, the refined mesh honored.
+    M12 (runM8): the OC particle (rNo pinned to the 7-point basis, the
+    surface row dead storage; dataYCons/dataYTemps report the recomputed
+    interface values), zNo 10, tNo 5, the refined mesh honored, the
+    interface projected onto c >= EPS. M10 (runM6): real units, the OC
+    particle, the (P, v) march, zNo 100, tNo 10 (solverSetting S2), the
+    uniform grid. Each whose reference cannot run is rmt_tpu's salvage
+    (models/hetero_dyn.py)."""
+    from ..models import hetero_dyn
+    from ..ops import jacobian as jac_ops
+    from ..ops import stencils
+
+    sc = model_input.get("solver-config", {})
+    if model_id == "M10":
+        zmesh, z_no = None, int(sc.get("zNo", 100))
+        r_no, t_no = 7, int(sc.get("tNo", 10))
+    else:
+        zmesh, z_no = stencils.solver_grid(model_input, 10)
+        r_no = int(sc.get("rNo", 7)) if model_id == "M11" else 7
+        t_no = int(sc.get("tNo", 5))
+    spec = hetero_dyn.m13_build_spec(model_input, z_no=z_no, r_no=r_no,
+                                     t_no=t_no)
+    rtol, atol = _hetero_dyn_tols(model_input)
+    start = timer()
+    if model_id == "M10":
+        p = hetero_dyn.m10_params(model_input, dtype=dtype, device=device)
+        args = (p,)
+        rhs = hetero_dyn.make_m10_rhs(spec, clamp_interface=True)
+        y_default = hetero_dyn.m10_initial_state(spec, p)
+    else:
+        p = hetero_dyn.m13_params(model_input, dtype=dtype, device=device)
+        args = (p, hetero_dyn.m13_feed(spec, p))
+        rhs = (hetero_dyn.make_m11_rhs(spec, mesh=zmesh) if model_id == "M11"
+               else hetero_dyn.make_m12_rhs(spec, clamp_interface=True,
+                                            mesh=zmesh))
+        y_default = hetero_dyn.m11_initial_state(spec, p)
+    y_init, t_start = _resume_or(model_input, y_default,
+                                 int(y_default.shape[0]), model_id)
+    ts = (t_start + p["opT"] * torch.linspace(
+        0.0, 1.0, spec.t_no + 1, dtype=dtype, device=device)).to(dtype)
+    jac = jac_ops.row_colored_jacobian_from(
+        lambda t, y: rhs(t, y, *args), jac_ops.two_phase_row_coloring(
+            spec.n_layer, spec.r_no + 1, spec.z_no))
+    ys, stats = radau.odeint(lambda t, y: rhs(t, y, *args), y_init, ts,
+                             rtol=rtol, atol=atol, jac=jac)
+    _check_integration(stats, model_id)
+    solid = None
+    if model_id == "M12":
+        # the dead surface-storage row replaced by the recomputed
+        # algebraic interface value (OC order, center-first)
+        surf = [hetero_dyn.m12_surface_values(spec, *args, y) for y in ys[1:]]
+        solid = tuple(torch.stack(v).cpu().numpy() for v in zip(*surf))
+    ys_t = ys[1:].cpu().numpy()
+    t_bounds = ts.cpu().numpy()
+    if model_id == "M10":
+        data_xs, x_label = (np.linspace(0.0, float(p["ReLe"]), z_no),
+                            "Reactor Length (m)")
+    else:
+        data_xs = (np.linspace(0.0, 1.0, z_no) if zmesh is None
+                   else np.asarray(zmesh["xs"]))
+        x_label = "Dimensionless Reactor Length"
+    return _dyn_result(
+        spec, _dyn_packs(spec, ys_t, t_bounds, solid), data_xs,
+        x_label, opts, start, {
+            "solverStats": _stats_dict(stats),
+            "checkpoint": {"model": model_input["model"],
+                           "t": float(t_bounds[-1]),
+                           "state": ys_t[-1].copy()}})
+
+
+def _m13_resume(model_input, spec, dtype, device):
+    """(y_gas0 (1, n_layer*zNo), y_solid0 (1, n_layer, rNo, zNo), t_start)
+    of an M13 run: None, None, 0 without resume-state; the checkpoint
+    carries both phases ("gas", "solid"), since M13's staggered exchange
+    has no flat state."""
+    resume = model_input.get("resume-state")
+    if resume is None:
+        return None, None, 0.0
+    if resume.get("model") != "M13":
+        raise ValueError(f"resume-state is for model {resume.get('model')!r}, "
+                         "not 'M13'")
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
+                               device=device)
+
+    y_gas0 = tensor(resume["gas"]).reshape(-1)
+    y_solid0 = tensor(resume["solid"])
+    if y_gas0.shape[0] != spec.n_layer * spec.z_no:
+        raise ValueError(
+            f"resume-state gas has {y_gas0.shape[0]} entries; this grid "
+            f"needs {spec.n_layer * spec.z_no}")
+    want = (spec.n_layer, spec.r_no, spec.z_no)
+    if tuple(y_solid0.shape) != want:
+        raise ValueError(f"resume-state solid has shape "
+                         f"{tuple(y_solid0.shape)}; this grid needs {want}")
+    return y_gas0[None], y_solid0[None], float(resume.get("t", 0.0))
+
+
+def _run_m13(model_input, opts, device, dtype):
+    """Dynamic heterogeneous packed bed by operator splitting (reference
+    pbHeterReactor.runM2 via rmtCore.M13Init; models/hetero_dyn.
+    make_m13_driver), zNo 10, rNo 7, tNo 5 or the refined mesh, at
+    solver-config rtol/atol (defaults 1e-7 / 1e-10). The gas state is
+    carried across intervals (rmt_tpu's documented deviation: the
+    reference re-seeds a dead variable, :1148). Raises at the first failed
+    interval, solid or gas, as rmt_tpu does."""
+    from ..models import hetero_dyn
+    from ..ops import stencils
+
+    sc = model_input.get("solver-config", {})
+    mesh, z_no = stencils.solver_grid(model_input, 10)
+    spec = hetero_dyn.m13_build_spec(model_input, z_no=z_no,
+                                     r_no=int(sc.get("rNo", 7)),
+                                     t_no=int(sc.get("tNo", 5)))
+    p = hetero_dyn.m13_params(model_input, dtype=dtype, device=device)
+    y_gas0, y_solid0, t_start = _m13_resume(model_input, spec, dtype, device)
+    start = timer()
+    gas_t, solid_t, conv_t, unr_t, ts_grid = hetero_dyn.make_m13_driver(
+        spec, mesh=mesh, rtol=opts["rtol"], atol=opts["atol"])(
+            p, y_gas0=y_gas0, y_solid0=y_solid0, t_start=t_start)
+    unr = unr_t[0].cpu().numpy()
+    conv = conv_t[0].cpu().numpy()
+    if unr.sum() or not conv.all():
+        # report the FIRST failure: a diverged solid interface poisons all
+        # later gas intervals
+        first_gas = int(np.argmax(unr > 0)) if unr.sum() else len(unr)
+        first_sol = int(np.argmax(~conv)) if not conv.all() else len(conv)
+        if first_sol < first_gas:
+            bad = [i for i, c in enumerate(conv) if not c]
+            raise RuntimeError(f"M13: solid BVP Newton did not converge at "
+                               f"interval(s) {bad}")
+        raise RuntimeError(
+            f"M13: gas-phase integrator failed to reach {int(unr.sum())} "
+            f"interval boundary(ies) within the step budget (first at "
+            f"interval {first_gas})")
+
+    gas_t = gas_t[0].cpu().numpy()          # (tNo, n_layer*zNo)
+    solid_t = solid_t[0].cpu().numpy()      # (tNo, n_layer, rNo, zNo)
+    t_bounds = ts_grid.cpu().numpy()
+    n_comp = spec.n_comp
+    c_max = float(torch.max(p["SpCoi0"]))
+    T0 = float(p["T0"])
+    packs = []
+    for i in range(spec.t_no):
+        Yg = gas_t[i].reshape(spec.n_layer, z_no)
+        conc_dl = Yg[:n_comp]
+        temp_dl = Yg[n_comp:n_comp + 1]
+        packs.append({
+            "successStatus": True,
+            "dataTime": t_bounds[i + 1],
+            "dataYCon": conc_dl,
+            "dataYTemp": temp_dl,
+            "dataYs": np.concatenate(
+                [conc_dl / np.sum(conc_dl, axis=0), temp_dl], axis=0),
+            # the solid phase's real profiles, r index 0 = interface (the
+            # reference returns empty lists here)
+            "dataYCons": solid_t[i][:n_comp] * c_max,
+            "dataYTemps": solid_t[i][n_comp] * T0 + T0,
+        })
+    data_xs = (np.linspace(0.0, 1.0, z_no) if mesh is None
+               else np.asarray(mesh["xs"]))
+    return _dyn_result(
+        spec, packs, data_xs, "Dimensionless Reactor Length",
+        opts, start, {"checkpoint": {"model": "M13",
+                                     "t": float(t_bounds[-1]),
+                                     "gas": gas_t[-1].copy(),
+                                     "solid": solid_t[-1].copy()}})
+
+
+# ---------------------------------------------------------------------------
 
 def rmtExe(modelInput: Mapping[str, Any], device=None):
     """Check model input, then start computation (reference: rmt.py:21-80),
@@ -1024,12 +1250,9 @@ def _rmt_exe_inner(modelInput: Mapping[str, Any], device):
             f"{model_type!r} (refined-mesh models: {sorted(_MESH_MODELS)})"
         )
     if model_type not in _PORTED:
-        where = ("rmt_tpu has it, the port does not have it yet"
-                 if model_type in _MODEL_IDS else "no package implements it")
         raise NotImplementedError(
-            f"model id {model_type!r} is not implemented in rmt_tpu_torch "
-            f"({where}; ported: {', '.join(_PORTED)})"
-        )
+            f"model id {model_type!r} is not implemented (neither rmt_tpu "
+            f"nor rmt_tpu_torch has it; ported: {', '.join(_PORTED)})")
     opts = _solver_options(modelInput)
     device = config.resolve_device(device)
     dtype = config.default_float()
@@ -1055,6 +1278,11 @@ def _rmt_exe_inner(modelInput: Mapping[str, Any], device):
     elif model_type in ("M7", "M8"):
         res_model = _run_m_conc_steady(modelInput, opts, device, dtype,
                                        model_type)
+    elif model_type in ("M10", "M11", "M12"):
+        res_model = _run_coupled_dyn(modelInput, opts, device, dtype,
+                                     model_type)
+    elif model_type == "M13":
+        res_model = _run_m13(modelInput, opts, device, dtype)
     else:   # M5, M14, T1, T2, T3
         res_model = {"M5": _run_m5, "M14": _run_m14, "T1": _run_t1,
                      "T2": _run_t2, "T3": _run_t3}[model_type](

@@ -1,10 +1,10 @@
-# Model inputs of the particle, axial-dispersion and steady heterogeneous
-# models (T1, T2, T3, M5, M14) on the DME case: the inputs rmt_tpu's own
-# tests give these models (tests/test_particle.py::_t1_model_input and
-# _t2_model_input, tests/test_t3.py::_t3_model_input,
-# tests/test_m14.py::_m14_model_input; M5 is pb_case's flow input), built
-# on the port's copy of the DME case so that scripts need no tests/
-# import.
+# Model inputs of the particle, axial-dispersion and heterogeneous models
+# (T1, T2, T3, M5, M14 and the dynamic M10-M13) on the DME case: the inputs
+# rmt_tpu's own tests give these models (tests/test_particle.py::
+# _t1_model_input and _t2_model_input, tests/test_t3.py::_t3_model_input,
+# tests/test_m14.py::_m14_model_input, tests/test_m13.py::_m13_model_input
+# and its M10, M11 and M12 variants; M5 is pb_case's flow input), built on
+# the port's copy of the DME case so that scripts need no tests/ import.
 
 import numpy as np
 
@@ -81,6 +81,43 @@ def m14_model_input(z_no=None, ramp_list=None, mesh="normal"):
     if ramp_list is not None:
         mi["solver-config"]["rampList"] = list(ramp_list)
     return mi
+
+
+def dyn_model_input(model="M13", grid=None, period=None):
+    """M10, M11, M12 or M13: the dynamic heterogeneous bed over a 5 s
+    period (feed in kmol/m^3, FDM particle for M11/M13), each model at its
+    default grid unless grid (solver-config zNo/rNo/tNo) or period is
+    given."""
+    mi = make_model_input(model="M13", op_period=5.0)
+    mi["model"] = model
+    mi["operating-conditions"]["numerical-method"] = "fdm"
+    mi["feed"]["concentration"] = np.asarray(mi["feed"]["concentration"]) / 1e3
+    mi["feed"]["superficial-velocity"] = 0.2
+    mi["feed"]["diffusivity"] = GA_DII
+    mi["feed"]["viscosity"] = np.full(6, 2.51e-5)
+    mi["feed"]["mixture-viscosity"] = 2.51e-5
+    mi["feed"]["thermal-conductivity"] = np.full(6, 0.125)
+    mi["feed"]["mixture-thermal-conductivity"] = 0.125
+    mi["reactor"].update({"CaPo": 0.45, "CaTo": 2.0, "CaThCo": 12.6})
+    mi["solver-config"].update({"root": "fsolve", "mesh": "normal"})
+    if grid:
+        mi["solver-config"].update(grid)
+    if period is not None:
+        mi["operating-conditions"]["period"] = period
+    return mi
+
+
+def m12_physical_resume(z_no):
+    """M12's resume-state at the physical startup state (the feed at every
+    (r, z) node, theta = 0; rNo + 1 = 8 rows), as rmt_tpu's
+    tests/test_m12.py starts its end-to-end run: the reference's 1e-6
+    seed is singular."""
+    mi = dyn_model_input("M12")
+    c_in = np.asarray(mi["feed"]["concentration"], np.float64)
+    c_in = c_in / np.max(c_in)
+    y0 = np.concatenate([np.tile(c_in[:, None, None], (1, 8, z_no)),
+                         np.zeros((1, 8, z_no))], axis=0).reshape(-1)
+    return {"model": "M12", "t": 0.0, "state": y0}
 
 
 def model_input(model):

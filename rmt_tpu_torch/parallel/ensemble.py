@@ -1,5 +1,6 @@
-# Ensemble execution of the homogeneous models and the M14 design sweep
-# (port of the N1/N2 slice and run_m14_sweep of
+# Ensemble execution of the homogeneous models and the heterogeneous
+# design sweeps (port of the N1/N2 slice and of run_m10_sweep,
+# run_m11_sweep, run_m12_sweep, run_m13_sweep and run_m14_sweep of
 # rmt_tpu/parallel/ensemble.py).
 #
 # A batch of reactors -- any leaf of the parameter dict may be swept:
@@ -16,6 +17,16 @@
 #   * run_m14_sweep: the steady M14 solve of every member (the
 #     reference's jax.vmap of models.hetero.make_m14_runner) as
 #     radau.odeint_batched and then newton.root_batched(like_root=True).
+#   * run_m10_sweep, run_m11_sweep, run_m12_sweep: the coupled dynamic
+#     heterogeneous transients of every member (the reference's jax.vmap
+#     of radau.odeint with the two-phase colored Jacobian) on
+#     radau.odeint_batched, the Jacobian colored over the whole batch.
+#   * run_m13_sweep: the M13 split driver of every member; engine="vmap"
+#     is models/hetero_dyn.make_m13_driver over the batch, engine=
+#     "lockstep" the gas phase on the lockstep integrator in tridiagonal
+#     block mode and every node's particle on root_batched in tridiagonal
+#     block mode with the bulk-homotopy rescue, one host read an interval
+#     deciding whether the rescue runs.
 #   * run_n2_ensemble_lockstep: the lockstep integrator in float32. Stage
 #     residuals go through the fused N2 RHS (ops/cuda_rhs.py: the
 #     generated CUDA kernel for tensors on the card, its plain twin on
@@ -510,4 +521,341 @@ def run_m14_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
         "states": x.reshape(Bsz, spec.n_comp + 1, 2, spec.z_no),
         "converged": converged,
         "res_norm": res_norm,
+    }
+
+
+def _member_grid(spec, params, axes):
+    """Every member's output times opT * linspace(0, 1, tNo + 1), (B, T)."""
+    from ..models import hetero_dyn
+
+    return hetero_dyn.per_member(lambda q: q["opT"] * torch.linspace(
+        0.0, 1.0, spec.t_no + 1, dtype=q["opT"].dtype,
+        device=q["opT"].device), params, axes)
+
+
+def _coupled_dyn_sweep(model_input, sweep, model_id, rtol, atol, mesh, y0,
+                       device, timings, solver_kwargs):
+    """The M10, M11 and M12 sweeps: every member's coupled gas + particle
+    transient (rmtExe's runner, at its grid) on radau.odeint_batched with
+    the two-phase colored Jacobian of the batch (by reverse mode, one
+    cotangent a row color serving every member; rmt_tpu's forward-mode
+    column colors give the same matrix). y0: (n,) shared or (B, n) per
+    member; default the model's seed (M10, M11) or the physical startup
+    state (M12).
+    Returns (ys (B, tNo+1, n), RadauStats of (B,) tensors)."""
+    from ..models import hetero_dyn as hd
+    from ..ops import jacobian as jac_ops
+    from ..ops import stencils
+
+    _no_mesh(mesh)
+    device = config.resolve_device(device)
+    sc = model_input.get("solver-config", {})
+    if model_id == "M11":
+        zmesh, z_no = stencils.solver_grid(model_input, 10)
+        r_no = int(sc.get("rNo", 7))
+    else:
+        if sc.get("mesh", "normal") != "normal":
+            raise ValueError(
+                f"the {model_id} sweep supports the normal mesh only; run "
+                "refined-mesh cases through rmtExe")
+        zmesh, z_no, r_no = None, int(sc.get(
+            "zNo", 100 if model_id == "M10" else 10)), 7
+    spec = hd.m13_build_spec(
+        model_input, z_no=z_no, r_no=r_no,
+        t_no=int(sc.get("tNo", 10 if model_id == "M10" else 5)))
+    if model_id == "M10":
+        base = hd.m10_params(model_input, device=device)
+        rhs = hd.make_m10_rhs(spec, clamp_interface=True)
+        seed = hd.m10_initial_state
+    else:
+        base = hd.m13_params(model_input, device=device)
+        rhs = (hd.make_m11_rhs(spec, mesh=zmesh) if model_id == "M11"
+               else hd.make_m12_rhs(spec, clamp_interface=True))
+        seed = (hd.m11_initial_state if model_id == "M11"
+                else hd.m12_physical_state)
+    params, axes = batch_params(base, sweep)
+    bsz = len(next(iter(sweep.values())))
+    n = spec.n_layer * (spec.r_no + 1) * spec.z_no
+    if y0 is None:
+        y0B = hd.per_member(lambda q: seed(spec, q), params, axes)
+    else:
+        y0B = torch.as_tensor(np.asarray(y0, np.float64), dtype=base[
+            "T0"].dtype, device=device)
+        if y0B.dim() == 1:
+            y0B = y0B.expand(bsz, -1)
+        if tuple(y0B.shape) != (bsz, n):
+            raise ValueError(f"y0 must have shape ({bsz}, {n}) or ({n},); "
+                             f"got {tuple(y0B.shape)}")
+    y0B = y0B.expand(bsz, n).contiguous()
+    if model_id == "M10":
+        fB = hd.over_members(lambda t, y, pp: rhs(t, y, pp), params, axes)
+        fS = hd.over_members(lambda t, y, pp: vmap(
+            lambda tt, yy: rhs(tt, yy, pp))(t, y), params, axes)
+        f, f_stages = fB, fS
+    else:
+        d = hd.per_member(lambda q: hd.m13_feed(spec, q), params, axes)
+        fB = hd.over_members(lambda t, y, dd, pp: rhs(t, y, pp, dd), params,
+                             axes)
+        fS = hd.over_members(lambda t, y, dd, pp: vmap(
+            lambda tt, yy: rhs(tt, yy, pp, dd))(t, y), params, axes)
+        f = lambda t, y: fB(t, y, d)
+        f_stages = lambda t, Y: fS(t, Y, d)
+    coloring = jac_ops.two_phase_row_coloring(spec.n_layer, spec.r_no + 1,
+                                              spec.z_no)
+
+    def jac(t, y):
+        return jac_ops.batched_row_colored_jacobian(lambda x: f(t, x),
+                                                    coloring)(y)
+
+    return radau.odeint_batched(
+        f, y0B, _member_grid(spec, params, axes).to(y0B.dtype), rtol=rtol,
+        atol=atol, jac=jac, f_stages=f_stages, timings=timings,
+        **solver_kwargs)
+
+
+def run_m11_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
+                  rtol: float = 1e-5, atol: float = 1e-6, mesh=None,
+                  device=None, timings=None, **solver_kwargs):
+    """Design sweep of the M11 dynamic heterogeneous reactor (rmt_tpu's
+    run_m11_sweep: jax.vmap of rmtExe M11's Radau run): the coupled gas +
+    FDM-particle transients of every member on radau.odeint_batched with
+    the two-phase colored Jacobian, each member as it runs alone, in
+    config.default_float() on ``device`` (default: the CUDA card).
+    Honors solver-config mesh/zNo/rNo/tNo like rmtExe. timings: an
+    optional dict for radau.odeint_batched's split of the wall.
+
+    Returns (ys, stats): ys (B, tNo+1, noLayer*(rNo+1)*zNo) dimensionless
+    states, stats per-member RadauStats."""
+    return _coupled_dyn_sweep(model_input, sweep, "M11", rtol, atol, mesh,
+                              None, device, timings, solver_kwargs)
+
+
+def run_m10_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
+                  rtol: float = 1e-5, atol: float = 1e-6, mesh=None, y0=None,
+                  device=None, timings=None, **solver_kwargs):
+    """Design sweep of the M10 dynamic heterogeneous reactor (real units,
+    OC particle, live velocity/pressure marches; rmt_tpu's run_m10_sweep),
+    as run_m11_sweep. y0 overrides the initial state ((n,) shared or
+    (B, n)); default the reference's seed. Returns (ys, stats), real
+    units."""
+    return _coupled_dyn_sweep(model_input, sweep, "M10", rtol, atol, mesh,
+                              y0, device, timings, solver_kwargs)
+
+
+def run_m12_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
+                  rtol: float = 1e-5, atol: float = 1e-6, mesh=None, y0=None,
+                  device=None, timings=None, **solver_kwargs):
+    """Design sweep of the M12 dynamic heterogeneous reactor (OC particle,
+    static algebraic interface; rmt_tpu's run_m12_sweep), as
+    run_m11_sweep. y0 overrides the initial state ((n,) shared or
+    (B, n)); the default is the PHYSICAL startup state (feed everywhere,
+    theta = 0), not the reference's singular 1e-6 seed. Returns (ys,
+    stats), dimensionless."""
+    return _coupled_dyn_sweep(model_input, sweep, "M12", rtol, atol, mesh,
+                              y0, device, timings, solver_kwargs)
+
+
+def run_m13_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
+                  rtol: float = 1e-5, atol: float = 1e-7, mesh=None,
+                  engine: str = "vmap", device=None, timings=None,
+                  **engine_kwargs):
+    """Design sweep of the M13 operator-splitting heterogeneous reactor
+    (rmt_tpu's run_m13_sweep) in config.default_float() on ``device``
+    (default: the CUDA card); the period opT must be shared.
+
+    engine="vmap": rmt_tpu's jax.vmap of the split driver, here
+    models/hetero_dyn.make_m13_driver over the batch (each member as it
+    runs alone; timings keys "gas", "ptc", "polish"). engine="lockstep":
+    rmt_tpu's scan-based engine (_run_m13_sweep_lockstep; normal mesh
+    only; options max_steps_gas, homotopy_stages, newton_iters_solid,
+    tol_solid; timings keys "gas", "solid", "rescue").
+
+    Returns a dict: gas (B, tNo, noLayer, zNo) dimensionless gas profiles
+    per interval, solid (B, tNo, noLayer, rNo, zNo), converged (B,) bool
+    (solid Newton at every interval), unreached (B,) int (gas budget
+    misses), ts (tNo+1,); the lockstep engine adds rescued (the intervals
+    whose homotopy rescue ran).
+    """
+    from ..models import hetero_dyn as hd
+    from ..ops import stencils
+
+    _no_mesh(mesh)
+    device = config.resolve_device(device)
+    zmesh, z_no = stencils.solver_grid(model_input, 10)
+    if "opT" in sweep:
+        raise ValueError("the M13 sweep requires a shared period")
+    if engine == "lockstep":
+        if zmesh is not None:
+            raise ValueError(
+                "engine='lockstep' supports the normal mesh only (the "
+                "refined dense-zone stencils couple z-2, which the "
+                "block-tridiagonal stage solves cannot represent)")
+        return _run_m13_sweep_lockstep(model_input, sweep, z_no, rtol, atol,
+                                       device, timings, **engine_kwargs)
+    if engine != "vmap":
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine_kwargs:
+        raise TypeError(
+            f"engine='vmap' takes no extra options: {sorted(engine_kwargs)}")
+    sc = model_input.get("solver-config", {})
+    spec = hd.m13_build_spec(model_input, z_no=z_no,
+                             r_no=int(sc.get("rNo", 7)),
+                             t_no=int(sc.get("tNo", 5)))
+    params, axes = batch_params(hd.m13_params(model_input, device=device),
+                                sweep)
+    gas_t, solid_t, conv_t, unr_t, ts_grid = hd.make_m13_driver(
+        spec, mesh=zmesh, rtol=rtol, atol=atol)(params, axes,
+                                                timings=timings)
+    b = gas_t.shape[0]
+    return {
+        "gas": gas_t.reshape(b, spec.t_no, spec.n_layer, spec.z_no),
+        "solid": solid_t,
+        "converged": conv_t.all(dim=1),
+        "unreached": unr_t.sum(dim=1),
+        "ts": ts_grid,
+    }
+
+
+def _run_m13_sweep_lockstep(model_input, sweep, z_no, rtol, atol, device,
+                            timings, max_steps_gas: int = 768,
+                            homotopy_stages: int = 8,
+                            newton_iters_solid: int = 30,
+                            tol_solid: float | None = None):
+    """rmt_tpu's lockstep M13 engine, interval for interval the staggered
+    exchange of make_m13_driver: the gas MoL phase of every member on
+    stiff_ensemble.odeint_ensemble in tridiagonal block mode (its dense
+    Jacobian colored over the batch, by reverse mode with the symmetric
+    tridiagonal coloring, max_steps_gas attempts), then every
+    node's particle BVP of every member as one root_batched over B*zNo
+    rows (block=(noLayer, rNo, "tridiag"), newton_iters_solid iterations,
+    tol_solid: rmt_tpu's off-TPU values, 1e-9 in float64, 3e-6 in
+    float32), warm-started from the previous interval's solid state.
+    Where any node fails, the bulk-homotopy rescue re-solves the failed
+    nodes along the bulk path previous -> new in homotopy_stages
+    warm-started solves, judged by the last stage alone; nodes that still
+    fail keep the previous solid state and their member reports
+    converged=False. Whether the rescue runs is one read by the host an
+    interval."""
+    from ..models import hetero_dyn as hd
+    from ..ops import jacobian as jac_ops
+    from ..solvers import newton
+
+    sc = model_input.get("solver-config", {})
+    spec = hd.m13_build_spec(model_input, z_no=z_no,
+                             r_no=int(sc.get("rNo", 7)),
+                             t_no=int(sc.get("tNo", 5)))
+    params, axes = batch_params(hd.m13_params(model_input, device=device),
+                                sweep)
+    dtype = params["T0"].dtype
+    if tol_solid is None:
+        # the reachable residual floor of the LHHW residual: 1e-9 in
+        # float64, about 1e-6 in float32 (rmt_tpu's off-TPU branch)
+        tol_solid = 1e-9 if dtype == _f64 else 3e-6
+    n_comp, n_layer, r_no = spec.n_comp, spec.n_layer, spec.r_no
+    n_node = n_layer * r_no
+    gas_rhs = hd.make_m13_gas_rhs(spec, flux_sign=-1.0)
+    solid = hd.make_m13_solid_residual(spec)
+    gas_coloring = jac_ops.tridiag_coloring(n_layer, z_no)
+    solid_coloring = jac_ops.tridiag_coloring(n_layer, r_no)
+
+    d = hd.per_member(lambda q: hd.m13_feed(spec, q), params, axes)
+    y_gas = hd.per_member(lambda q: hd.m13_gas_initial_state(spec, q),
+                          params, axes)
+    y_solid = hd.per_member(lambda q: hd.m13_solid_initial_state(spec, q),
+                            params, axes)
+    Bsz, dev = y_gas.shape[0], y_gas.device
+    gas_b = hd.over_members(lambda t, y, dd, cs, ts, pp: gas_rhs(
+        t, y, pp, dd, cs, ts), params, axes)
+    gas_st = hd.over_members(lambda t, y, dd, cs, ts, pp: vmap(
+        lambda tt, yy: gas_rhs(tt, yy, pp, dd, cs, ts))(t, y), params, axes)
+    solid_b = hd.over_members(lambda y, cb, tb, dd, pp: solid(
+        y, cb, tb, pp, dd), params, axes)
+
+    def lap(t0, key):
+        if timings is None:
+            return t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        timings[key] = timings.get(key, 0.0) + now - t0
+        return now
+
+    def solid_residual(x, cb, tb):
+        """x (B*zNo, n_node) node rows; cb (B, n_comp, zNo), tb (B, zNo):
+        the gas bulk of the Robin interface, clamped with max(EPS) as the
+        normal-mesh driver clamps it."""
+        y = x.reshape(Bsz, z_no, n_layer, r_no).permute(0, 2, 3, 1)
+        r = solid_b(y, torch.clamp(cb, min=hd.EPS_CONST), tb, d)
+        return r.permute(0, 3, 1, 2).reshape(Bsz * z_no, n_node)
+
+    def solve_solid(x0, cb, tb):
+        res = lambda x: solid_residual(x, cb, tb)
+        return newton.root_batched(
+            res, x0, max_iter=newton_iters_solid,
+            jac=jac_ops.batched_row_colored_jacobian(res, solid_coloring),
+            tol=tol_solid, block=(n_layer, r_no, "tridiag"))
+
+    cs_surf, ts_surf = y_solid[:, :n_comp, 0], y_solid[:, n_comp, 0]
+    g0 = y_gas.reshape(Bsz, n_layer, z_no)
+    c_bulk, t_bulk = g0[:, :n_comp], g0[:, n_comp]
+    # interval 0 has no previous solve: its homotopy degenerates to the
+    # direct Newton
+    c_prev, t_prev = c_bulk, t_bulk
+    ts_grid = (params["opT"] * torch.linspace(
+        0.0, 1.0, spec.t_no + 1, dtype=dtype, device=dev)).to(dtype)
+    ws = np.linspace(1.0 / homotopy_stages, 1.0, homotopy_stages)
+    out, rescued = [], 0
+    for k in range(spec.t_no):
+        clock = time.perf_counter()
+
+        def fB(t, y):
+            return gas_b(t, y, d, cs_surf, ts_surf)
+
+        def jac_gas(t, y):
+            return jac_ops.batched_row_colored_jacobian(
+                lambda yy: fB(t, yy), gas_coloring)(y)
+
+        ys, stats = stiff_ensemble.odeint_ensemble(
+            fB, y_gas, ts_grid[k:k + 2], rtol=rtol, atol=atol, jac=jac_gas,
+            block=(n_layer, z_no, "tridiag"), max_steps=max_steps_gas,
+            f_stages=lambda t_st, Y: gas_st(t_st, Y, d, cs_surf, ts_surf))
+        y_gas = ys[-1]
+        unreached = (stats.seg < 1).to(torch.int32)
+        clock = lap(clock, "gas")
+
+        # the solid against the PREVIOUS interval's bulk (staggered),
+        # warm-started from the previous interval's solid state
+        x0 = y_solid.permute(0, 3, 1, 2).reshape(Bsz * z_no, n_node)
+        sol = solve_solid(x0, c_bulk, t_bulk)
+        x_sol, conv_n = sol.x, sol.converged
+        need = ~conv_n
+        clock = lap(clock, "solid")
+        if bool(need.any()):
+            rescued += 1
+            xk, conv_h = x0, conv_n
+            for w in ws:
+                sk = solve_solid(xk, (1.0 - w) * c_prev + w * c_bulk,
+                                 (1.0 - w) * t_prev + w * t_bulk)
+                xk = torch.where(sk.converged[:, None], sk.x, xk)
+                conv_h = sk.converged
+            x_sol = torch.where(need[:, None], xk, x_sol)
+            conv_n = torch.where(need, conv_h, conv_n)
+            lap(clock, "rescue")
+        # nodes that still failed keep the previous solid state
+        x_sol = torch.where(conv_n[:, None], x_sol, x0)
+        y_solid = x_sol.reshape(Bsz, z_no, n_layer, r_no).permute(0, 2, 3, 1)
+        conv = conv_n.reshape(Bsz, z_no).all(dim=1)
+        cs_surf, ts_surf = y_solid[:, :n_comp, 0], y_solid[:, n_comp, 0]
+        c_prev, t_prev = c_bulk, t_bulk
+        Yg = y_gas.reshape(Bsz, n_layer, z_no)
+        c_bulk, t_bulk = Yg[:, :n_comp], Yg[:, n_comp]
+        out.append((y_gas, y_solid, conv, unreached))
+    gas_t, solid_t, conv_t, unr_t = (torch.stack(v, dim=1) for v in zip(*out))
+    return {
+        "gas": gas_t.reshape(Bsz, spec.t_no, n_layer, z_no),
+        "solid": solid_t,
+        "converged": conv_t.all(dim=1),
+        "unreached": unr_t.sum(dim=1),
+        "ts": ts_grid,
+        "rescued": rescued,
     }

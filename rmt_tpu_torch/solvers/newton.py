@@ -12,7 +12,12 @@
 #
 # root is the reference's lax.while_loop as a host loop that reads one
 # flag an iteration; root_batched keeps its fixed iteration budget with
-# per-member masks and reads nothing back inside the loop.
+# per-member masks, and ends early once every member has converged (one
+# flag read an iteration: converged members are frozen, so the result is
+# the whole budget's). Its block modes
+# solve each Newton step exactly through the block structure of a member's
+# Jacobian (ops/block_solve.py), in plain PyTorch as rmt_tpu solves them in
+# plain XLA.
 
 from __future__ import annotations
 
@@ -69,10 +74,43 @@ def _damped_step(f, x, fx, fn, dx, n_backtrack, damping_init):
             torch.where(found, best_fn, _rms(f_full)))
 
 
-def _newton_step(f, jac, x, fx):
+def _dense_solve(J, b):
+    return torch.linalg.solve(J, b)
+
+
+def _block_solve(block, n):
+    """The batched solve J x = b (J (B, n, n), b (B, n)) through the
+    block structure block=(m, z[, "tridiag"]): J is block bidiagonal (or
+    tridiagonal) with (m x m) node blocks in the flat layout v*z + node
+    (ops/jacobian.py's conventions)."""
+    from ..ops import block_solve as bs
+
+    m_b, z_b = block[0], block[1]
+    tridiag = len(block) > 2 and block[2] == "tridiag"
+    if m_b * z_b != n:
+        raise ValueError(f"block {block} does not tile state size {n}")
+
+    def lin_solve(J, b):
+        B = b.shape[0]
+        rb = b.reshape(B, m_b, z_b).transpose(1, 2)
+        if tridiag:
+            xb = bs.tridiag_solve(bs.tridiag_factor(
+                *bs.extract_tridiag_blocks(J, m_b, z_b)), rb)
+        else:
+            Jd, Jl = bs.extract_bidiag_blocks(J, m_b, z_b)
+            Minv = bs.batched_inv(Jd.reshape(-1, m_b, m_b)).reshape(
+                B, z_b, m_b, m_b)
+            xb = bs.solve_bidiag(Minv, -torch.einsum("bzij,bzjk->bzik",
+                                                     Minv, Jl), rb)
+        return xb.transpose(1, 2).reshape(B, n)
+
+    return lin_solve
+
+
+def _newton_step(jac, x, fx, lin_solve=_dense_solve):
     """The undamped Newton step of a batch, J dx = -f; a non-finite entry
     becomes 0."""
-    dx = torch.linalg.solve(jac(x), -fx)
+    dx = lin_solve(jac(x), -fx)
     return torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
 
 
@@ -100,7 +138,7 @@ def root(f, x0, args=None, max_iter: int = 50, n_backtrack: int = 8,
     it = 0
     done = torch.zeros(1, dtype=torch.bool, device=x.device)
     while it < max_iter:
-        dx = _newton_step(fb, jac, x, fx)
+        dx = _newton_step(jac, x, fx)
         x, fx, fn = _damped_step(fb, x, fx, fn, dx, n_backtrack,
                                  damping_init)
         it += 1
@@ -119,32 +157,30 @@ def root_batched(f, x0, max_iter: int = 30, n_backtrack: int = 6,
 
     A fixed budget of max_iter iterations with per-member masking: a
     member that has converged keeps its state (its residual is not
-    re-evaluated into it) and its iteration count. Nothing is read back
-    to the host inside the loop.
+    re-evaluated into it) and its iteration count, so the loop ends
+    once every member has converged with the whole budget's result (one
+    flag read by the host an iteration).
 
     like_root=True gives every member what root gives it alone (jax.vmap
     of rmt_tpu's root): convergence is tested after each iteration, not
-    at x0, and the loop ends once every member has converged (one flag
-    read by the host an iteration).
+    at x0.
 
     f: batched residual f(x (B, n)) -> (B, n) (close per-member
     parameters over it); members must be independent.
     jac: optional batched Jacobian jac(x) -> (B, n, n); default the dense
     one by reverse mode (exact, since members are independent).
-    block: the reference's block-structured solves (block=(m, z[,
-    "tridiag"])) are not ported; any value other than None raises.
+    block=(m, z[, "tridiag"]): a member's Jacobian is block bidiagonal
+    (tridiagonal) with (m x m) node blocks in the flat layout v*z + node
+    (ops/jacobian.py's conventions); Newton steps then solve exactly
+    through that structure (ops/block_solve.py). None: the dense solve.
 
     Convergence per member: ||f||_rms < tol * (1 + ||x||_inf), also at
     x0 unless like_root. Returns NewtonResult of batched fields ((B, n), (B,), (B,) int32,
     (B,) bool).
     """
-    if block is not None:
-        raise NotImplementedError(
-            "root_batched(block=...) needs the block solves of "
-            "ops/block_solve.py, which rmt_tpu_torch ports with the "
-            "dynamic heterogeneous models M10-M13 (ROADMAP queue 1, item "
-            "1, hetero_dyn); use block=None for the dense solve")
     x = torch.as_tensor(x0)
+    lin_solve = (_dense_solve if block is None
+                 else _block_solve(block, x.shape[-1]))
     if jac is None:
         jac = _dense_jacobian(f)
     fx = f(x)
@@ -153,9 +189,9 @@ def root_batched(f, x0, max_iter: int = 30, n_backtrack: int = 6,
             else _converged(fn, x, tol))
     it = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
     for _ in range(max_iter):
-        if like_root and bool(done.all()):
+        if bool(done.all()):
             break
-        dx = _newton_step(f, jac, x, fx)
+        dx = _newton_step(jac, x, fx, lin_solve)
         x_new, fx_new, fn_new = _damped_step(f, x, fx, fn, dx, n_backtrack,
                                              damping_init)
         conv = _converged(fn_new, x_new, tol)

@@ -1,6 +1,6 @@
 # Batched lockstep stiff integrator: Radau IIA(5) with eigen-transformed
 # stages (port of rmt_tpu/solvers/stiff_ensemble.py::odeint_ensemble, its
-# Newton-Schulz mode and its bidiagonal block mode).
+# Newton-Schulz mode and its bidiagonal and tridiagonal block modes).
 #
 # One global adaptive loop runs the whole ensemble with per-member step
 # sizes and masked accept/reject. The 3-stage Radau coefficient matrix is
@@ -22,6 +22,13 @@
 #     once per attempt for the error estimate. The blocks come from
 #     jac_blocks, or are extracted from a dense jac
 #     (ops/block_solve.extract_bidiag_blocks).
+#   * tridiagonal block mode (block=(m, z, "tridiag")): central-difference
+#     dispersion couples z-1, z and z+1 (the M13 gas phase). The three
+#     float32 blocks are extracted from the dense jac at each refresh, and
+#     both systems are factored by block cyclic reduction at each
+#     attempt's h and solved exactly through the eigen-transform
+#     (ops/block_solve.make_shifted_solvers_tridiag), in plain PyTorch on
+#     any device: rmt_tpu has no Pallas kernel for this mode either.
 #
 # The Jacobian is refreshed once per chunk of j_every attempts. Without a
 # jac (and, in block mode, without jac_blocks), it is the dense Jacobian
@@ -39,9 +46,9 @@
 # member finished) and, in Newton-Schulz mode, the cold-rescue test of
 # the refresh travel in the same transfer.
 #
-# Left for later ports: the tridiagonal block mode, the theta-keyed growth
-# cap, the Newton-failure barrier, a per-member f (the reference's
-# batched=False; here f is always batched) and the reference's tuning
+# Left for later ports: the theta-keyed growth cap, the Newton-failure
+# barrier, a per-member f (the reference's batched=False; here f is
+# always batched) and the reference's tuning
 # arguments (rhs_noise, max_factor, predict_stages), here fixed at the
 # reference's defaults.
 
@@ -53,7 +60,8 @@ import numpy as np
 import torch
 
 from ..ops import cuda_block, cuda_ns
-from ..ops.block_solve import extract_bidiag_blocks
+from ..ops.block_solve import (extract_bidiag_blocks, extract_tridiag_blocks,
+                               make_shifted_solvers_tridiag)
 from .radau import extrap_weights, radau_tableau
 
 _SAFETY = 0.9
@@ -161,6 +169,8 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     (B, z_no, var_no, var_no), the block-bidiagonal Jacobian; or, without
     jac_blocks, the dense jac (default: batched_jacobian), whose blocks
     are extracted at each refresh and whose row sums set the first step.
+    block = (var_no, z_no, "tridiag"): a block-TRIdiagonal Jacobian,
+    always from the dense jac (jac_blocks is not read).
 
     f_stages / f_cheap_stages: optional all-stages evaluators
     (ts (B, 3), Y (B, 3, n)) -> (B, 3, n); the fused RHS kernel provides
@@ -183,11 +193,14 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     """
     Bsz, n = y0.shape
     dtype, dev = y0.dtype, y0.device
+    tridiag = block is not None and len(block) > 2 and block[2] == "tridiag"
     if block is not None:
-        var_no, z_no = block
+        var_no, z_no = block[0], block[1]
         if var_no * z_no != n:
             raise ValueError(
                 f"block {block} does not tile the state size {n}")
+    if tridiag:
+        jac_blocks = None
     if jac is None and jac_blocks is None:
         def jac(t, y):
             return batched_jacobian(f, t, y)
@@ -267,6 +280,38 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
             x_t = cuda_block.block_apply_real(e_t, MinvR, Jl_t, h32,
                                               gamma=gamma)
             return x_t.permute(2, 0, 1).reshape(Bsz, n).to(dtype)
+
+        return solve_stages, solve_err
+
+    def to_blocks(x):               # (B, n) flat v*z -> (B, z, m)
+        return x.reshape(Bsz, var_no, z_no).transpose(1, 2)
+
+    def from_blocks(xb):            # (B, z, m) -> (B, n)
+        return xb.transpose(1, 2).reshape(Bsz, n)
+
+    def tridiag_solvers(h_eff, Jd, Jl, Ju):
+        """Factor the tridiagonal blocks (B, z, m, m) once for this
+        attempt's h; return the stage solve and the error smoothing with
+        stage_solvers' signatures."""
+        solve_real, solve_cplx = make_shifted_solvers_tridiag(
+            Jd, Jl, Ju, h_eff, gamma, mu_r, mu_i)
+
+        def solve_stages(R):
+            # W = T^-1 R (row 0 is real and row 2 = conj(row 1))
+            Wr = torch.einsum("ij,bjn->bin", Tir, R)
+            Wi = torch.einsum("ij,bjn->bin", Tii, R)
+            z0 = from_blocks(solve_real(to_blocks(Wr[:, 0].to(_f32))))
+            z1r, z1i = solve_cplx(to_blocks(Wr[:, 1].to(_f32)),
+                                  to_blocks(Wi[:, 1].to(_f32)))
+            Z1r, Z1i = from_blocks(z1r), from_blocks(z1i)
+            Zr = torch.stack([z0, Z1r, Z1r], dim=1).to(dtype)
+            Zi = torch.stack([torch.zeros_like(z0), Z1i, -Z1i],
+                             dim=1).to(dtype)
+            return (torch.einsum("ij,bjn->bin", Tr, Zr)
+                    - torch.einsum("ij,bjn->bin", Ti, Zi))
+
+        def solve_err(e32):
+            return from_blocks(solve_real(to_blocks(e32))).to(dtype)
 
         return solve_stages, solve_err
 
@@ -370,10 +415,11 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
         out = torch.where(m_r[:, :, None], y_d, out)
         return out, seg + torch.sum(m_cross, dim=0).to(seg.dtype)
 
-    def attempt(s, Jd_t=None, Jl_t=None):
+    def attempt(s, *blocks):
         """One masked step attempt of every member. Block mode takes the
-        chunk's member-last Jacobian blocks; Newton-Schulz mode reads the
-        dense Jacobian s["J"] and the preconditioners s["P"]."""
+        chunk's Jacobian blocks (member-last (Jd, Jl); tridiagonal mode
+        member-first (Jd, Jl, Ju)); Newton-Schulz mode reads the dense
+        Jacobian s["J"] and the preconditioners s["P"]."""
         t, y, yc, fval, h = s["t"], s["y"], s["yc"], s["f"], s["h"]
         seg = s["seg"]
         seg_c = torch.clamp(seg + 1, max=n_out - 1)
@@ -384,7 +430,8 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
         h_eff = torch.where(active, torch.minimum(h, t_end - t), h)
         h_eff = torch.clamp(h_eff, min=1e-300)
         if block is not None:
-            solve_stages, solve_err = stage_solvers(h_eff, Jd_t, Jl_t)
+            solve_stages, solve_err = (tridiag_solvers if tridiag
+                                       else stage_solvers)(h_eff, *blocks)
             P, certified = None, None
         else:
             # warm preconditioner maintenance every attempt (h drifts by
@@ -574,13 +621,18 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
         if block is not None:
             if not bool(alive(s)):
                 break
-            # refresh the Jacobian blocks once per chunk, member-last
-            if jac_blocks is not None:
-                Jd, Jl = jac_blocks(s["t"], s["y"])
-            else:
-                Jd, Jl = extract_bidiag_blocks(
+            # refresh the Jacobian blocks once per chunk (bidiagonal:
+            # member-last for the block kernels)
+            if tridiag:
+                lin = extract_tridiag_blocks(
                     jac(s["t"], s["y"]).to(_f32), var_no, z_no)
-            lin = (to_member_last(Jd), to_member_last(Jl))
+            else:
+                if jac_blocks is not None:
+                    Jd, Jl = jac_blocks(s["t"], s["y"])
+                else:
+                    Jd, Jl = extract_bidiag_blocks(
+                        jac(s["t"], s["y"]).to(_f32), var_no, z_no)
+                lin = (to_member_last(Jd), to_member_last(Jl))
         else:
             fresh = ns_refresh_chunk(s)
             if fresh is None:

@@ -2,12 +2,14 @@
 """The port's sequential path on one CUDA card: rmtExe for N1 and N2 and
 the vmapped N2 ensemble (BASELINE config #4), all in float64 on the
 member-batched Radau integrator (rmt_tpu_torch.solvers.radau); with
---models, rmtExe for the other models instead; with --m14-sweep, the M14
-design sweep.
+--models, rmtExe for the other models instead (--dyn: the dynamic
+heterogeneous M10-M13 alone); with --m14-sweep, --m13-sweep or
+--m11-sweep, the design sweeps.
 
     python3 scripts/bench_torch_seq.py [--b B ...] [--skip-api]
-    python3 scripts/bench_torch_seq.py --models
-    python3 scripts/bench_torch_seq.py --m14-sweep B [B ...]
+    python3 scripts/bench_torch_seq.py --models | --dyn
+    python3 scripts/bench_torch_seq.py [--m14-sweep B ...] [--m13-sweep B ...]
+                                       [--m11-sweep B ...]
 
   rmtExe N2  the DME case (zNo 20, n = 140, tNo 5, period 0.5, solver
              defaults rtol 1e-7 / atol 1e-10) at the first probe
@@ -56,7 +58,32 @@ float64, scripts/gen_models_ref.py):
              first and a warm call each, the first call's Radau attempts
              and Newton iterations; XYList rows and dataYs within 1e-6
              relative, T1's checkpoint state too and its attempts within
-             1.25 times the reference's.
+             1.25 times the reference's;
+  dynamic    rmtExe M10 (zNo 10, tNo 2, 0.02 s), M11 and M13 (zNo 10, rNo
+             7, tNo 5, 5 s) and M12 (zNo 10, tNo 2, 4e-3 s from the
+             physical startup state), hetero_case.dyn_model_input's
+             inputs: a first and a warm call each (peak device memory of
+             the warm call) and an instrumented third whose wall is split
+             (M10-M12: Jacobians, LU factorisations, Newton sweeps, rest;
+             M13: gas phase, continuation, Newton polish); every dataPack
+             row and the checkpoint within 1e-6 of models_ref.npz, M10-
+             M12's attempts within 1.25 times the reference's; and M10 at
+             its default zNo 100 over 1e-3 s (n = 5,600; no reference:
+             finite, mole fractions summing to 1 within 1e-6, temperatures
+             within 400-1000 K), its attempts and LU factorisations (a
+             first and the instrumented call only); M13 over two chained
+             2.5 s runs against one 5 s run (m13_resume, 1e-6).
+
+With --m13-sweep B: run_m13_sweep(engine="lockstep") at B members (M13
+at zNo 10, rNo 7, tNo 5; T0 = 523 + linspace(0, 8, B), models_ref.npz's
+three inlet temperatures at members 0, B // 2 and B - 1): wall split into
+the gas phase, the solid Newton and the homotopy rescue, members/s, peak
+device memory, the intervals that took the rescue; every member
+converged, none unreached, the three members within rtol 2e-4, atol 1e-8
+of rmt_tpu's lockstep engine (the gap printed). With --m11-sweep B:
+run_m11_sweep at B members (M11 at its default grid, n = 560, T0 = 523 +
+linspace(0, 8, B)): wall split as rmtExe M10-M12's, members/s, attempts,
+peak device memory; every member reaches its output times.
 
 With --m14-sweep B (hetero_case's M14 at zNo 30, T0 = 523 +
 linspace(0, 20, B) with models_ref.npz's three inlet temperatures at
@@ -407,6 +434,278 @@ def m14_sweep(torch, device, b, ref, co_gas=None):
     return rec
 
 
+# rmtExe of the dynamic heterogeneous models (hetero_case.dyn_model_input):
+# M10 at zNo 10 (its default zNo 100 has no CPU reference) and tNo 2 over
+# rmt_tpu's test period 0.02 s; M11 and M13 at their default grids (zNo
+# 10, rNo 7, tNo 5, period 5 s); M12 at zNo 10 (rNo pinned at 7 by the OC
+# basis), tNo 2 over rmt_tpu's test period 4e-3 s from the physical
+# startup state; "M10 z100" is M10's default zNo 100 over 1e-3 s, checked
+# for physics only (no reference)
+DYN_MODELS = ("M10", "M11", "M12", "M13")
+# their bar: |got - want| / (|want| + DYN_FLOOR) <= BAR_STEADY, the floor
+# of chip_smoke.rel_err's kernel checks. M13's particle Newton stops at a
+# residual of 1e-9, so two correct implementations part at about 1e-9
+# absolute (measured on the CPU: 4.8e-10, the port against rmt_tpu), in
+# rows whose entries reach down to 1e-5 (theta near the inlet
+# temperature): rel_err's floor 1e-7 would count that as 1e-4. Both
+# errors are recorded.
+DYN_FLOOR = 1e-3
+DYN_ROWS = ("dataYCon", "dataYTemp", "dataYs", "dataYCons", "dataYTemps")
+# the inlet temperatures of models_ref.npz's M13 lockstep sweep rows: the
+# members 0, B // 2 and B - 1 of 523 + linspace(0, 8, 256)
+M13_SWEEP_T0 = (523.0, 523.0 + 8.0 * 128 / 255, 531.0)
+
+
+def dyn_input(part):
+    """The modelInput of a DYN_MODELS entry (or "M10 z100")."""
+    from rmt_tpu_torch.cases import hetero_case
+
+    if part == "M10 z100":
+        return hetero_case.dyn_model_input("M10", dict(tNo=2), 1e-3)
+    if part == "M10":
+        return hetero_case.dyn_model_input("M10", dict(zNo=10, tNo=2), 0.02)
+    if part == "M12":
+        mi = hetero_case.dyn_model_input("M12", dict(zNo=10, tNo=2), 4e-3)
+        mi["resume-state"] = hetero_case.m12_physical_resume(10)
+        return mi
+    return hetero_case.dyn_model_input(part)
+
+
+def rel_floor(got, want, floor=DYN_FLOOR):
+    """max |got - want| / (|want| + floor)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (np.abs(want) + floor)).max())
+
+
+def dyn_pack(res):
+    """{row: (tNo, ...)} of a dynamic heterogeneous rmtExe result's
+    dataPack, and the checkpoint's arrays (state; M13: gas, solid)."""
+    out = {k: np.stack([np.asarray(p[k], np.float64)
+                        for p in res["dataPack"]]) for k in DYN_ROWS}
+    out.update({k: np.asarray(v, np.float64)
+                for k, v in res["checkpoint"].items()
+                if k in ("state", "gas", "solid")})
+    return out
+
+
+def m10_physics(res):
+    """rmt_tpu's tests/test_m10.py checks of a result without a
+    reference: every value finite, gas mole fractions summing to 1 within
+    1e-6, temperatures between 400 and 1000 K. Returns the worst
+    violation (0 when all hold)."""
+    pack = dyn_pack(res)
+    if not all(np.isfinite(v).all() for v in pack.values()):
+        return float("inf")
+    n_comp = pack["dataYCon"].shape[1]
+    err = float(np.abs(pack["dataYs"][:, :n_comp].sum(axis=1) - 1.0).max()
+                / 1e-6)
+    temps = np.concatenate([pack["dataYTemp"].ravel(),
+                            pack["dataYTemps"].ravel()])
+    out = float(max(400.0 - temps.min(), temps.max() - 1000.0, 0.0))
+    return max(err - 1.0, 0.0) + out
+
+
+def dyn_model(torch, device, part, ref, warm=True, split=False):
+    """rmtExe of a DYN_MODELS entry (a first call and, with warm, a
+    second; peak device memory of the last) against models_ref.npz:
+    every dataPack row and the checkpoint within 1e-6 (rel_floor, floor
+    DYN_FLOOR; rel_err's, floor 1e-7, recorded beside it), M10-M12's
+    Radau attempts
+    within ATTEMPTS_RATIO of the reference's (M13 reports none, in
+    rmt_tpu too). "M10 z100" is held to m10_physics instead. With split,
+    M13's wall is split into the gas phase, the continuation and the
+    Newton polish, and M10-M12's into the Jacobians, LU factorisations,
+    Newton sweeps and the rest (an instrumented third call)."""
+    from rmt_tpu_torch import rmtExe
+
+    torch.cuda.reset_peak_memory_stats()
+    first, res = timed(torch, lambda: rmtExe(dyn_input(part), device=device))
+    if warm:
+        torch.cuda.reset_peak_memory_stats()
+        warm, res = timed(torch, lambda: rmtExe(dyn_input(part),
+                                                device=device))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = res["resModel"]
+    out = dict(part=f"rmtExe {part}", first_s=first, warm_s=warm,
+               peak_gib=peak)
+    st = res.get("solverStats")
+    if st is not None:
+        out.update(attempts=st["n_accepted"] + st["n_rejected"],
+                   accepted=st["n_accepted"], rejected=st["n_rejected"],
+                   lu=st["n_lu"])
+    if split:
+        out["split_s"] = dyn_split(torch, device, part)
+    if part == "M10 z100":
+        v = m10_physics(res)
+        out.update(physics_violation=v, ok=bool(v == 0.0))
+        return out
+    key = part.lower()
+    pack = dyn_pack(res)
+    err = max(rel_floor(v, ref[f"{key}_{k}"]) for k, v in pack.items())
+    out.update(rel_err_1e7=max(float(rel_err(v, ref[f"{key}_{k}"]).max())
+                               for k, v in pack.items()),
+               max_abs_err=max(float(np.abs(v - ref[f"{key}_{k}"]).max())
+                               for k, v in pack.items()))
+    finite = all(bool(np.isfinite(v).all()) for v in pack.values())
+    ok = err <= BAR_STEADY and finite
+    if st is not None:
+        ref_att = int(ref[f"{key}_attempts"].sum())
+        out.update(ref_attempts=ref_att)
+        ok = ok and (ref_att / ATTEMPTS_RATIO <= out["attempts"]
+                     <= ATTEMPTS_RATIO * ref_att)
+    if part == "M11":
+        out["state"] = pack["state"].tolist()
+    out.update(max_rel_err=err, bar=BAR_STEADY, finite=finite, ok=bool(ok))
+    return out
+
+
+def dyn_split(torch, device, part):
+    """{part: seconds} of an instrumented rmtExe call of a dynamic
+    heterogeneous model: radau.odeint_batched's timings (M10-M12), or
+    make_m13_driver's (M13), each part closed by a device
+    synchronisation."""
+    from rmt_tpu_torch import rmtExe
+    from rmt_tpu_torch.models import hetero_dyn
+    from rmt_tpu_torch.solvers import radau
+
+    acc = {}
+    if part == "M13":
+        saved, mod, name = hetero_dyn.make_m13_driver, hetero_dyn, \
+            "make_m13_driver"
+
+        def patched(*a, **kw):
+            run = saved(*a, **kw)
+            return lambda *ra, **rkw: run(*ra, **dict(rkw, timings=acc))
+    else:
+        saved, mod, name = radau.odeint_batched, radau, "odeint_batched"
+
+        def patched(*a, **kw):
+            return saved(*a, **dict(kw, timings=acc))
+    setattr(mod, name, patched)
+    try:
+        timed(torch, lambda: rmtExe(dyn_input(part), device=device))
+    finally:
+        setattr(mod, name, saved)
+    return acc
+
+
+def m13_resume(torch, device):
+    """M13 (zNo 10, rNo 7) over 5 s in four intervals, and the same as two
+    chained 2.5 s runs of two intervals (the first's checkpoint is the
+    second's resume-state), as rmt_tpu's tests/test_m13.py chains them:
+    the chained checkpoint's error (rel_floor; rel_err and the absolute
+    error recorded) against the single run's."""
+    from rmt_tpu_torch import rmtExe
+    from rmt_tpu_torch.cases import hetero_case
+
+    wall, full = timed(torch, lambda: rmtExe(
+        hetero_case.dyn_model_input("M13", dict(tNo=4), 5.0),
+        device=device))
+    ck_full = full["resModel"]["checkpoint"]
+    ck = None
+    for _ in range(2):
+        mi = hetero_case.dyn_model_input("M13", dict(tNo=2), 2.5)
+        if ck is not None:
+            mi["resume-state"] = ck
+        w, res = timed(torch, lambda: rmtExe(mi, device=device))
+        wall += w
+        ck = res["resModel"]["checkpoint"]
+    pairs = [(ck[k], np.asarray(ck_full[k])) for k in ("gas", "solid")]
+    err = max(rel_floor(a, b) for a, b in pairs)
+    return dict(part="rmtExe M13 chained resume", wall_s=wall,
+                t_end=float(ck["t"]), max_rel_err=err,
+                rel_err_1e7=max(float(rel_err(a, b).max()) for a, b in pairs),
+                max_abs_err=max(float(np.abs(a - b).max()) for a, b in pairs),
+                bar=BAR_STEADY,
+                ok=bool(err <= BAR_STEADY and abs(ck["t"] - 5.0) < 1e-9))
+
+
+def m13_sweep_t0(b):
+    """The M13 sweep's inlet temperatures: 523 + linspace(0, 8, b) with
+    M13_SWEEP_T0 at members 0, b // 2 and b - 1 (scripts/bench_m13.py's
+    design sweep)."""
+    t0 = 523.0 + np.linspace(0.0, 8.0, b)
+    t0[[0, b // 2, b - 1]] = M13_SWEEP_T0
+    return t0
+
+
+def m13_sweep(torch, device, b, ref):
+    """run_m13_sweep(engine="lockstep") at b members over m13_sweep_t0(b)
+    (M13 at zNo 10, rNo 7, tNo 5, the defaults of scripts/bench_m13.py):
+    wall split into the gas phase, the solid Newton and the rescue,
+    members/s, peak device memory, the intervals that took the rescue,
+    the inlet temperatures of unconverged members; every member
+    converged with no output time unreached, members 0,
+    b // 2 and b - 1 within rtol 2e-4, atol 1e-8 of rmt_tpu's lockstep
+    engine (models_ref.npz; rmt_tpu's bar between its engines), the
+    measured gap reported."""
+    from rmt_tpu_torch.cases import hetero_case
+    from rmt_tpu_torch.parallel import run_m13_sweep
+
+    mi = hetero_case.dyn_model_input("M13")
+    split = {}
+    torch.cuda.reset_peak_memory_stats()
+    wall, out = timed(torch, lambda: run_m13_sweep(
+        mi, {"T0": m13_sweep_t0(b)}, engine="lockstep", device=device,
+        timings=split))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = [0, b // 2, b - 1]
+    gaps, ok_tol = {}, True
+    for k in ("gas", "solid"):
+        got = out[k].cpu().numpy()
+        want = ref[f"m13_sweep_{k}"]
+        diff = np.abs(got[rows] - want)
+        gaps[k] = dict(abs=float(diff.max()), rel=float(
+            (diff / np.maximum(np.abs(want), 1e-8)).max()))
+        ok_tol = (ok_tol and bool(np.isfinite(got).all())
+                  and bool(np.all(diff <= 1e-8 + 2e-4 * np.abs(want))))
+    converged = int(out["converged"].sum())
+    unreached = int(out["unreached"].sum())
+    t0 = m13_sweep_t0(b)
+    return dict(part="run_m13_sweep lockstep", B=b, wall_s=wall,
+                unconverged_t0=t0[~out["converged"].cpu().numpy()].tolist(),
+                members_per_sec=b / wall, split_s=split, peak_gib=peak,
+                converged=converged, unreached=unreached,
+                rescued_intervals=out["rescued"], gap=gaps,
+                bar="rtol 2e-4, atol 1e-8",
+                ok=bool(ok_tol and converged == b and unreached == 0))
+
+
+def m11_sweep(torch, device, b, state=None):
+    """run_m11_sweep at b members, T0 = M11_SWEEP_T0's first b entries
+    spread over the same 8 K (M11 at its default grid, n = 560): wall
+    split into the Jacobians, LU factorisations, Newton sweeps and the
+    rest, members/s, peak device memory; every member reaches its output
+    times and stays finite, and, given state (rmtExe M11's checkpoint on
+    the card), member 0's final state within 1e-6 of it (rel_floor; the
+    record carries member 0's final state as "state")."""
+    from rmt_tpu_torch.cases import hetero_case
+    from rmt_tpu_torch.parallel import run_m11_sweep
+
+    mi = hetero_case.dyn_model_input("M11")
+    split = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = 523.0 + np.linspace(0.0, 8.0, b)
+    wall, (ys, stats) = timed(torch, lambda: run_m11_sweep(
+        mi, {"T0": t0}, device=device, timings=split))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    att = (stats.n_accepted + stats.n_rejected).cpu().numpy()
+    finite = bool(torch.isfinite(ys).all())
+    unreached = int(stats.n_unreached.sum())
+    rec = dict(part="run_m11_sweep", B=b, n=int(ys.shape[-1]), wall_s=wall,
+               members_per_sec=b / wall, split_s=split, peak_gib=peak,
+               attempts_mean=float(att.mean()), attempts_max=int(att.max()),
+               unreached=unreached, finite=finite, bar=BAR_STEADY,
+               state=ys[0, -1].cpu().numpy().tolist())
+    ok = finite and unreached == 0
+    if state is not None:
+        e0 = rel_floor(ys[0, -1].cpu().numpy(), state)
+        rec["member0_vs_rmtexe"] = e0
+        ok = ok and e0 <= BAR_STEADY
+    rec["ok"] = bool(ok)
+    return rec
+
+
 def _timed_calls(torch, fn, acc, key):
     """fn, with each call closed by device synchronisations and its wall
     added to acc[key]."""
@@ -507,8 +806,15 @@ def main():
                     help="only the ensemble")
     ap.add_argument("--models", action="store_true",
                     help="only rmtExe of the models other than N1/N2")
+    ap.add_argument("--dyn", action="store_true",
+                    help="only rmtExe of M10-M13 (and M10 at zNo 100)")
     ap.add_argument("--m14-sweep", type=int, nargs="+", metavar="B",
                     help="only run_m14_sweep at these member counts")
+    ap.add_argument("--m13-sweep", type=int, nargs="+", metavar="B",
+                    help="only run_m13_sweep(engine='lockstep') at these "
+                    "member counts")
+    ap.add_argument("--m11-sweep", type=int, nargs="+", metavar="B",
+                    help="only run_m11_sweep at these member counts")
     args = ap.parse_args()
     sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
     import rmt_tpu_torch  # noqa: F401 (its import turns TF32 off: header)
@@ -519,15 +825,26 @@ def main():
           f"{torch.backends.cuda.preferred_linalg_library()}", flush=True)
     device = torch.device("cuda:0")
     parts = []
-    if args.m14_sweep:
+    if args.m14_sweep or args.m13_sweep or args.m11_sweep:
         ref = models_ref()
-        parts += [m14_sweep(torch, device, b, ref) for b in args.m14_sweep]
-    elif args.models:
+        parts += [m14_sweep(torch, device, b, ref)
+                  for b in args.m14_sweep or ()]
+        parts += [m13_sweep(torch, device, b, ref)
+                  for b in args.m13_sweep or ()]
+        parts += [m11_sweep(torch, device, b) for b in args.m11_sweep or ()]
+    elif args.models or args.dyn:
         ref = models_ref()
-        parts.append(rmtexe_m2(torch, device, ref))
-        parts += [steady_model(torch, device, m, ref) for m in STEADY_MODELS]
-        parts += [hetero_model(torch, device, m, ref)
-                  for m in HETERO_MODELS]
+        if args.models:
+            parts.append(rmtexe_m2(torch, device, ref))
+            parts += [steady_model(torch, device, m, ref)
+                      for m in STEADY_MODELS]
+            parts += [hetero_model(torch, device, m, ref)
+                      for m in HETERO_MODELS]
+        # M10 at zNo 100: a first and the instrumented call (minutes each)
+        parts += [dyn_model(torch, device, m, ref, warm=m != "M10 z100",
+                            split=True)
+                  for m in (*DYN_MODELS, "M10 z100")]
+        parts.append(m13_resume(torch, device))
     elif args.skip_api:
         parts += [ensemble(torch, b, device) for b in args.b]
     else:
@@ -543,8 +860,9 @@ def main():
         parts.append(rmtexe_n1(torch, device, ref))
     for r in parts:
         r.update(card=card, device=torch.cuda.get_device_name(0))
-        print(" ".join(f"{k}={v}" for k, v in r.items()
-                       if k not in ("stats", "co_gas")), flush=True)
+        r = {k: v for k, v in r.items()
+             if k not in ("stats", "co_gas", "state", "checkpoint")}
+        print(" ".join(f"{k}={v}" for k, v in r.items()), flush=True)
         print(json.dumps(r), flush=True)
     if not all(r["ok"] for r in parts):
         raise SystemExit("bench_torch_seq: FAILED (an unreached output "

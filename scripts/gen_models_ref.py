@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Regenerate models_ref.npz: rmt_tpu's rmtExe on the CPU in float64 for
-every model but N1, N2, M9 and M10-M13, and rmt_tpu's M14 design sweep,
-the oracle that chip_smoke.py holds rmt_tpu_torch to on the card.
+every model but N1, N2 and M9, rmt_tpu's M14 design sweep and its
+lockstep M13 sweep, the oracle that chip_smoke.py holds rmt_tpu_torch to
+on the card.
 
     python3 scripts/gen_models_ref.py [--out models_ref.npz]
 
@@ -15,8 +16,18 @@ accepted and rejected attempts (t1_attempts); for M2 at its default grid
 (zNo 100, tNo 10) dataPacktime (m2_packtime, (7, 10, 100)), the final
 state (m2_state) and the attempts (m2_attempts); run_m14_sweep at zNo 30
 over the inlet temperatures of scripts/bench_torch_seq.M14_SWEEP_T0
-(m14_sweep_t0 (3,), m14_sweep_states (3, 7, 2, 30)). M9 is not in the
-file: rmt_tpu's M9 run exhausts its attempt budget. About 2 minutes.
+(m14_sweep_t0 (3,), m14_sweep_states (3, 7, 2, 30)). For the dynamic
+heterogeneous M10 (zNo 10, tNo 2, period 0.02 s), M11 and M13 (default
+grids) and M12 (zNo 10, tNo 2, period 4e-3 s, from the physical startup
+state) -- scripts/bench_torch_seq.dyn_input -- every dataPack row stacked
+over the intervals (<key>_dataYCon, _dataYTemp, _dataYs, _dataYCons,
+_dataYTemps), the checkpoint (<key>_state; M13: m13_gas, m13_solid) and,
+for M10-M12, the Radau attempts (<key>_attempts); rmt_tpu's lockstep M13
+sweep (zNo 10, rNo 7, tNo 5) at the inlet temperatures of
+bench_torch_seq.M13_SWEEP_T0 (m13_sweep_t0 (3,), m13_sweep_gas (3, 5, 7,
+10), m13_sweep_solid (3, 5, 7, 7, 10), and its solid Newton's flags
+m13_sweep_converged (3,)). M9 is not in the file: rmt_tpu's
+M9 run exhausts its attempt budget. About 6 minutes.
 """
 
 import argparse
@@ -46,8 +57,10 @@ def main():
     from rmt_tpu_torch.cases.pb_case import model_input
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    from bench_torch_seq import (HETERO_MODELS, M14_SWEEP_T0, hetero_input,
-                                 ref_key)
+    from bench_torch_seq import (DYN_MODELS, HETERO_MODELS, M13_SWEEP_T0,
+                                 M14_SWEEP_T0, dyn_input, dyn_pack,
+                                 hetero_input, ref_key)
+    from rmt_tpu.parallel import run_m13_sweep
 
     out = {}
     for model in (*STEADY, "M2"):
@@ -87,6 +100,29 @@ def main():
     out["m14_sweep_t0"] = np.asarray(M14_SWEEP_T0)
     out["m14_sweep_states"] = np.asarray(sweep["states"])
     print(f"M14 sweep: {time.perf_counter() - t0:.1f} s", flush=True)
+    for model in DYN_MODELS:
+        t0 = time.perf_counter()
+        res = rmtExe(dyn_input(model))["resModel"]
+        key = model.lower()
+        for k, v in dyn_pack(res).items():
+            out[f"{key}_{k}"] = v
+        if "solverStats" in res:
+            st = res["solverStats"]
+            out[f"{key}_attempts"] = np.asarray(
+                [st["n_accepted"], st["n_rejected"]])
+        print(f"{model}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    sweep = run_m13_sweep(dyn_input("M13"),
+                          {"T0": np.asarray(M13_SWEEP_T0)}, engine="lockstep")
+    assert not np.asarray(sweep["unreached"]).any()
+    # rmt_tpu's solid Newton leaves one node of the middle member above
+    # its tolerance at the last interval: recorded, not asserted
+    out["m13_sweep_converged"] = np.asarray(sweep["converged"])
+    out["m13_sweep_t0"] = np.asarray(M13_SWEEP_T0)
+    out["m13_sweep_gas"] = np.asarray(sweep["gas"])
+    out["m13_sweep_solid"] = np.asarray(sweep["solid"])
+    print(f"M13 lockstep sweep: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     np.savez_compressed(args.out, **out)
     print(f"wrote {args.out}: " + ", ".join(
         f"{k} {v.shape}" for k, v in out.items()))

@@ -17,6 +17,7 @@ import rmt_tpu_torch
 from dme_case import make_model_input
 from rmt_tpu.models import homo as j_homo
 from rmt_tpu_torch.api import rmt as t_rmt
+from rmt_tpu_torch.cases import hetero_case
 from rmt_tpu_torch.models import homo as t_homo
 
 
@@ -138,10 +139,14 @@ def test_fixed_stepper_divergence_raises():
         t_exe(mi)
 
 
-@pytest.mark.parametrize("model", ["M10", "M11", "M13"])
-def test_unported_model_id_raises_not_implemented(model):
-    mi = make_model_input(model=model)
-    with pytest.raises(NotImplementedError, match="port"):
+@pytest.mark.parametrize("model", ["M10", "M11", "M12", "M13"])
+def test_dyn_model_refuses_another_models_checkpoint(model):
+    """The router of the dynamic heterogeneous models (every model id is
+    ported): a resume-state of another model raises ValueError before any
+    integration, as rmt_tpu's _resume_or and _run_m13 do."""
+    mi = hetero_case.dyn_model_input(model, dict(zNo=4, rNo=3, tNo=1))
+    mi["resume-state"] = {"model": "M2", "t": 0.0, "state": np.zeros(4)}
+    with pytest.raises(ValueError, match="resume-state is for model 'M2'"):
         t_exe(mi)
 
 

@@ -104,8 +104,9 @@ def test_root_batched_frozen_members_keep_their_state():
 
 def test_root_batched_takes_a_jacobian_and_refuses_block_modes():
     """jac= replaces the default reverse-mode Jacobian (the same roots);
-    the default equals the analytic Jacobian to 1e-12; block= (the
-    reference's structured solves) raises naming the ROADMAP item."""
+    the default equals the analytic Jacobian to 1e-12; a block= layout
+    that does not tile the state is refused (the block modes themselves
+    are held in tests/test_torch_hetero_dyn.py)."""
     p, C, r = _system(3, seed=3)
     pt, Ct, rt = (torch.as_tensor(a) for a in (p, C, r))
     f_t = _residual(pt, Ct, rt)
@@ -120,5 +121,5 @@ def test_root_batched_takes_a_jacobian_and_refuses_block_modes():
     xs = torch.as_tensor(np.random.default_rng(4).standard_normal((3, N)))
     np.testing.assert_allclose(t_newton._dense_jacobian(f_t)(xs).numpy(),
                                jac(xs).numpy(), rtol=1e-12, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="hetero_dyn"):
-        t_newton.root_batched(f_t, x0, block=(2, 3))
+    with pytest.raises(ValueError, match="does not tile"):
+        t_newton.root_batched(f_t, x0, block=(N + 1, 1))
