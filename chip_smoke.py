@@ -12,33 +12,34 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      both TF32 switches off;
   1. build: nvcc builds the block kernels (csrc/block.cu), the
      Newton-Schulz kernel (csrc/ns.cu) and the fused N2 RHS kernels
-     generated for the DME and the CH4 chemistry (plain and df32 each),
-     all at once, into build/, and prints each kernel's registers, spills
-     and static shared memory;
+     generated for the DME and the CH4 chemistry (plain, df32 and the
+     plain mode's accurate-f32-math variant each), all at once, into
+     build/, and prints each kernel's registers, spills and static shared
+     memory;
   2. each kernel against its plain PyTorch twin on the card, at the main
-     paths' shapes (B = 4096 members, z = 20 nodes, m = 7 variables,
-     n = 140; the RHS at M = B and M = 3B rows), each timed with CUDA
-     events (median of 25 samples of 5 back-to-back calls) beside its
-     twin, its roofline bound and, where one PyTorch call computes the
-     same function, that call; each kernel also timed with its samples
-     queued behind a sleep of the card (card_ms: the card's work alone),
-     and the wrapper's host time a call (host_ms). The block and RHS
-     kernels equal their twins bit for bit, also at a ragged member count
-     (B = 100; the RHS of both chemistries at M = 300 rows), for
-     block_factor also with steps 1000 times longer (inversions that
-     pivot) and, for the RHS, on a state that is not 16-byte aligned (the
-     kernel's 4-byte copies); each RHS result must be a contiguous
-     row-major (M, n) tensor; the Newton-Schulz kernel (dense float32
-     products against cuBLAS) is held to 2e-5, and to a float64
+     paths' shapes (B = 4096 members, z = 20 nodes, m = 7 variables, n =
+     140; the RHS at M = B and M = 3B rows), each timed with CUDA events
+     (median of 25 samples of 5 back-to-back calls) beside its twin, its
+     roofline bound and, where one PyTorch call computes the same
+     function, that call (the accurate-math RHS variant as the plain one,
+     against its twin with the DSL's accurate-f32 switch on); each kernel
+     also timed with its samples queued behind a sleep of the card
+     (card_ms: the card's work alone), and the wrapper's host time a call
+     (host_ms). The block and RHS kernels equal their twins bit for bit,
+     also at a ragged member count (B = 100; the RHS of both chemistries
+     at M = 300 rows), for block_factor also with steps 1000 times longer
+     (inversions that pivot) and, for the RHS, on a state that is not
+     16-byte aligned (the kernel's 4-byte copies); each RHS result must be
+     a contiguous row-major (M, n) tensor; the Newton-Schulz kernel (dense
+     float32 products against cuBLAS) is held to 2e-5, and to a float64
      evaluation, at n = 140, 24, 30, 80 and 100; its wide route
      (csrc/ns_wide.cu, the members wider than 160) to 2e-5 at n = 161,
-     200, 210, 420, 301, 1000 and 1584 (its limit), at a ragged B = 100
-     (n = 210) and on operands not 16-byte aligned (n = 210, 420), bit
-     for bit on a repeat, and at the f32_wide phase's shape (B = 256,
-     n = 210, J the zNo-30 DME Jacobians) also to a float64 evaluation,
-     timed there and at n = 420 (B = 64), its geometry and resident
-     blocks recorded; it is
-     also held to 2e-5 at the N1 shapes (B = 4096; n = 8, and n = 7
+     200, 210, 420, 301, 1000 and 1584 (its limit), at a ragged B = 100 (n
+     = 210) and on operands not 16-byte aligned (n = 210, 420), bit for
+     bit on a repeat, and at the f32_wide phase's shape (B = 256, n = 210,
+     J the zNo-30 DME Jacobians) also to a float64 evaluation, timed there
+     and at n = 420 (B = 64), its geometry and resident blocks recorded;
+     it is also held to 2e-5 at the N1 shapes (B = 4096; n = 8, and n = 7
      of the iso-thermal process; J the N1 Jacobians at the sweep's inlet)
      and timed at n = 8 beside its twin, three torch.bmm and its bound;
      the three block kernels equal their twins bit for bit at M2's shape
@@ -154,7 +155,23 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      M11_SWEEP_B members (member 0 within 1e-6 of the child's rmtExe
      M11), each with its wall, members/s, peak device memory (and the M13
      sweep's rescued intervals); counts reset just before the phase, all
-     0 after it.
+     0 after it;
+ 14. n2_opts, the rest of rmt_tpu's N2 ensemble options at the 64 DME
+     probe temperatures of bench_ref.npz (B = 64, zNo 20; the
+     accurate-math pair at phase 4's B = 4096 with the probes spliced
+     in), each check held to the probes with the launch counts reset just
+     before it,
+     every member finished and every state finite: bench.py's f64 leg
+     (dtype float64, Newton-Schulz; bar 1e-6; ns_fused_step),
+     accurate_rates=True (f32x options; 1e-6; the block kernels and the
+     plain RHS kernel of the cheap sweeps), accurate_rates="full" (3e-6,
+     twice rmt_tpu's own error in that mode, FULL_BAR; the block kernels,
+     no RHS kernel), batched_rhs=True (f32 options, the member-last
+     plain RHS; 5e-5; ns_fused_step, no RHS kernel), fused_rhs=False
+     (f32x; 1e-6; block kernels), colored_jacobian=False (f32 options;
+     5e-5; ns_fused_step and the plain RHS kernel) and the f32 options
+     with the DSL's accurate-f32 switch on (5e-5; ns_fused_step and the
+     RHS kernel's accurate-math variant) and off, both errors printed.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -188,6 +205,10 @@ F32X = dict(rtol=6e-7, atol=1e-9, max_steps=768, newton_iters=5, j_every=8,
 # defaults spelled out for the launch count
 F32 = dict(rtol=1e-5, atol=1e-7, max_steps=768, newton_iters=5, j_every=8,
            ns_refresh=5, ns_step=1)
+# bench.py's opt-in f64 leg (LEGS["f64"]: the integrator's defaults spelled
+# out), with dtype=torch.float64
+F64 = dict(rtol=1e-7, atol=1e-10, max_steps=768, newton_iters=6,
+           j_every=16, ns_refresh=5, ns_step=1)
 # the card's published peaks (H100 SXM): device memory and float32 outside
 # the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -200,8 +221,16 @@ N1_KERNELS = ("ns_fused_step",)
 # F32_WIDE_B members; the f32 leg's Newton-Schulz steps take the wide route
 WIDE_Z, F32_WIDE_B = 30, 256
 F32_WIDE_KERNELS = ("ns_fused_step_wide", "n2_rhs_plain")
+# the n2_opts phase: accurate_rates="full" at the f32x options. rmt_tpu's
+# own run of the 64 probes errs by 1.50e-6 in that mode (and by 2.78e-6
+# in df32 mode, 6.67e-7 with accurate_rates=True; CPU,
+# scripts/jax_n2_modes_error.py): at rtol 6e-7 a float32 run's whole-run
+# error lands anywhere in that span with its step sequence, so the check
+# holds the mode to twice the reference's own error
+FULL_BAR = 3e-6
 # the models phase: rmtExe M2's stage solves
 M2_KERNELS = ("block_factor", "block_apply", "block_apply_real")
+BLOCK_KERNELS = M2_KERNELS
 # the steady_het phase: run_m14_sweep at M14_SWEEP_B members
 M14_SWEEP_B = 256
 # the dyn_het phase: the M13 lockstep sweep and run_m11_sweep
@@ -556,7 +585,8 @@ def check_row_major(got, shape, name):
 
 
 def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
-    """Both fused RHS kernels against their twin at M = B, M = 3B (also
+    """The fused RHS kernels (plain, df32 and the plain mode's
+    accurate-math variant) against their twins at M = B, M = 3B (also
     from a start that is not 16-byte aligned) and the ragged M = 300, on
     a perturbed DME state (the input of tests/test_fused_rhs.py), each
     result a contiguous row-major tensor, and the df32 kernel against the
@@ -566,16 +596,14 @@ def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
     ref64 = rhs64(y)
     res, err64 = {}, {}
     ragged = ragged_rows(torch, y, ens)
-    for mode, rhs_f in rhs_fns.items():
-        df32_mode = mode == "df32"
+    for rhs_f in rhs_fns.values():
         worst, worst_abs = 0.0, 0.0
         for yy, l1, l2 in ((y, ens.leaves1, ens.leaves2),
                            (y3, ens.leaves1, ens.leaves2), ragged,
                            (misaligned(torch, y3), ens.leaves1,
                             ens.leaves2)):
             got = rhs_f(yy, l1, l2)
-            want = cuda_rhs.n2_rhs_twin(ens.spec, df32_mode, ens.ko_keys, yy,
-                                        l1, l2)
+            want = rhs_f.twin(yy, l1, l2)
             torch.cuda.synchronize()
             check_row_major(got, yy.shape, rhs_f.kernel_name)
             rel, dmax = scaled_err(got, want)
@@ -605,9 +633,8 @@ def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
             max_abs_err=worst_abs,
             **kernel_times(torch, lambda: rhs_f(y3, ens.leaves1,
                                                 ens.leaves2)),
-            plain_ms=time_ms(torch, lambda: cuda_rhs.n2_rhs_twin(
-                ens.spec, df32_mode, ens.ko_keys, y3, ens.leaves1,
-                ens.leaves2)),
+            plain_ms=time_ms(torch, lambda: rhs_f.twin(y3, ens.leaves1,
+                                                       ens.leaves2)),
             library_ms=None, **bound(n_bytes, n_ops))
     # the twin could share a fault with the kernel, so the df32 mode is
     # also held to what it is for: on this input its error against the
@@ -616,7 +643,8 @@ def rhs_phase(torch, np, cuda_rhs, rhs_fns, ens, rhs64):
     # lost its low words lands back at the plain mode's error
     e_df, e_pl = err64["n2_rhs_df32"], err64["n2_rhs_plain"]
     say(f"n2_rhs: against float64, df32 {e_df:.3e} vs plain {e_pl:.3e} "
-        f"(bar: df32 <= plain / 2)")
+        f"(bar: df32 <= plain / 2); the plain mode's accurate-math variant "
+        f"{err64['n2_rhs_plain_am']:.3e}")
     check(e_df <= 0.5 * e_pl, f"df32 RHS error {e_df} not under half the "
           f"plain RHS error {e_pl}")
     return res
@@ -629,13 +657,12 @@ def rhs_guard(torch, np, cuda_rhs, rhs_fns, ens):
     16-byte aligned."""
     y = perturbed_state(torch, np, ens)
     y3 = torch.cat([y, y * 1.01, y * 0.99], dim=0)
-    for mode, rhs_f in rhs_fns.items():
+    for rhs_f in rhs_fns.values():
         ragged = ragged_rows(torch, y, ens)
         for yy, l1, l2 in ((y3, ens.leaves1, ens.leaves2), ragged,
                            (misaligned(torch, ragged[0]), *ragged[1:])):
             got = rhs_f(yy, l1, l2)
-            want = cuda_rhs.n2_rhs_twin(ens.spec, mode == "df32",
-                                        ens.ko_keys, yy, l1, l2)
+            want = rhs_f.twin(yy, l1, l2)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), "CH4 RHS is not finite")
             check_row_major(got, yy.shape, f"ch4 {rhs_f.kernel_name}")
@@ -1619,6 +1646,85 @@ def dyn_het_phase(torch, np, bench_seq, counts, dev, dyn_procs):
     say(f"dyn_het: phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
+def n2_opts_phase(torch, np, mi, run, counts, dev):
+    """The rest of rmt_tpu's N2 ensemble options at the DME probe
+    temperatures of bench_ref.npz (zNo 20), each check held to the
+    reference probes at its bar with the launch counts reset just before
+    it: every member finishes, every state is finite, and the kernels of
+    the check's path launch as its chunks say (no other). Most checks run
+    the 64 probes alone (B = 64); the accurate-math pair runs phase 4's
+    sweep (B = 4096, the probes spliced in), on and off in turns, since a
+    float32 run's step sequence, and with it a probe's error, moves with
+    the batch's rounding (the f32 options at B = 64 put one probe at
+    6.4e-5 where the same member at B = 4096 stays at 5.8e-6)."""
+    from rmt_tpu_torch.kinetics.dsl import accurate_f32_math
+
+    t_phase = time.perf_counter()
+    with np.load(os.path.join(ROOT, "bench_ref.npz")) as z:
+        ref_ys, t_base, offsets = (z["dme_ys"], float(z["dme_t_base"]),
+                                   z["dme_offsets"])
+    b64 = len(offsets)
+    checks = (
+        ("f64 leg", dict(F64, dtype=torch.float64), 1e-6,
+         ("ns_fused_step",), False, b64),
+        ("accurate_rates=True", dict(F32X, accurate_rates=True), 1e-6,
+         BLOCK_KERNELS + ("n2_rhs_plain",), False, b64),
+        ('accurate_rates="full"', dict(F32X, accurate_rates="full"),
+         FULL_BAR, BLOCK_KERNELS, False, b64),
+        # plain float32: the member-last df32 chain in eager PyTorch takes
+        # about 63 s at B = 64 on the card (thousands of launches an
+        # evaluation, every sweep), beyond this phase's share of the wall
+        ("batched_rhs=True", dict(F32, batched_rhs=True), 5e-5,
+         ("ns_fused_step",), False, b64),
+        ("fused_rhs=False", dict(F32X, fused_rhs=False), 1e-6,
+         BLOCK_KERNELS, False, b64),
+        ("colored_jacobian=False", dict(F32, colored_jacobian=False), 5e-5,
+         ("ns_fused_step", "n2_rhs_plain"), False, b64),
+        ("accurate f32 math on", F32, 5e-5,
+         ("ns_fused_step", "n2_rhs_plain_am"), True, B),
+        ("accurate f32 math off", F32, 5e-5,
+         ("ns_fused_step", "n2_rhs_plain"), False, B),
+    )
+    total, errs = {}, {}
+    for label, opts, bar, kernels, am, b in checks:
+        name = f"n2_opts {label}"
+        sweep, idx = probe_layout(np, b, offsets)
+        reset_counts(counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with accurate_f32_math(am):
+            ys, y_fin, stats = run(mi, {"T0": t_base + sweep},
+                                   out_members=idx, device=dev, **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        unfinished = int(torch.sum(stats.seg < ys.shape[0] - 1))
+        att = (stats.n_accepted + stats.n_rejected).cpu().numpy()
+        got = ys.double().cpu().numpy()
+        rel = np.abs(got - ref_ys) / np.maximum(np.abs(ref_ys), 1e-7)
+        errs[label] = float(rel.max())
+        say(f"{name}: B {b}, {ys.dtype}, wall {wall:.3f} s, members/s "
+            f"{b / wall:.3f}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+            f"attempts mean {att.mean():.1f} max {int(att.max())}, "
+            f"unfinished {unfinished}, Jacobian refreshes "
+            f"{stats.n_jev - 1}; max_rel_err {rel.max():.4e} mean_rel_err "
+            f"{rel.mean():.4e} over {len(idx)} probes (bar {bar:g})")
+        check(unfinished == 0, f"{name}: {unfinished}/{b} members exhausted "
+              "the budget")
+        check(bool(torch.isfinite(y_fin).all()), f"{name}: non-finite "
+              "states")
+        check(rel.max() <= bar, f"{name}: max_rel_err {rel.max()} > {bar:g}")
+        launches = check_launches(name, counts, kernels, stats, opts)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    say(f"n2_opts: the f32 leg's max_rel_err with accurate f32 math on "
+        f"{errs['accurate f32 math on']:.4e}, off "
+        f"{errs['accurate f32 math off']:.4e}")
+    say(f"n2_opts: phase wall {time.perf_counter() - t_phase:.3f} s")
+    return total
+
+
 def newton_system(torch, np, b, device):
     """(f, r, member) of b independent cubic systems x**3 + p x + C x = q
     in NEWTON_N unknowns (numpy seed SEED; p > 0 per member, C a shared
@@ -1808,6 +1914,7 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
     from torch.func import vmap
 
     from rmt_tpu_torch.cases import ch4_case, dme_case
+    from rmt_tpu_torch.kinetics.dsl import accurate_f32_math
     from rmt_tpu_torch.models import homo
     from rmt_tpu_torch.ops import _build, cuda_block, cuda_ns, cuda_rhs
     from rmt_tpu_torch.parallel import (prepare_n2_ensemble,
@@ -1828,12 +1935,21 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
             mi, {"T0": 523.0 + np.linspace(-5.0, 5.0, F32_WIDE_B)},
             device=dev)
 
-    def fused(e):
-        return {mode: cuda_rhs.build_n2_fused(e.spec, accurate_rates=mode,
-                                              ko_keys=e.ko_keys)
+    def fused(e, accurate_math=True):
+        """The RHS functions of a chemistry: plain, df32 and, with
+        accurate_math, the plain mode's accurate-math variant."""
+        with accurate_f32_math(False):
+            fns = {mode: cuda_rhs.build_n2_fused(
+                e.spec, accurate_rates=mode, ko_keys=e.ko_keys)
                 for mode in (False, "df32")}
+        if accurate_math:
+            with accurate_f32_math(True):
+                fns["am"] = cuda_rhs.build_n2_fused(e.spec,
+                                                    ko_keys=e.ko_keys)
+        return fns
 
-    rhs_fns, rhs_ch4, rhs_30 = fused(ens), fused(ens_ch4), fused(ens30)
+    rhs_fns, rhs_ch4 = fused(ens), fused(ens_ch4)
+    rhs_30 = fused(ens30, accurate_math=False)
     t0 = time.perf_counter()
     block_src = (_build.CSRC / "block.cu").read_text()
     _build.compile_sources(
@@ -1954,6 +2070,8 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
           dev, het_proc)
     phase("dyn_het", dyn_het_phase, torch, np, benches.seq, counts, dev,
           dyn_procs)
+    by_path["n2_opts"] = phase("n2_opts", n2_opts_phase, torch, np, mi,
+                               run_n2_ensemble_lockstep, counts, dev)
     say("phase walls (s): " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
 
@@ -1968,15 +2086,18 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
                          "rmt_tpu/ops/pallas_rhs.py:340"),
         "n2_rhs_df32": ("rmt_tpu_torch/ops/cuda_rhs.py",
                         "rmt_tpu/ops/pallas_rhs.py:340"),
+        "n2_rhs_plain_am": ("rmt_tpu_torch/ops/cuda_rhs.py",
+                            "rmt_tpu/ops/pallas_rhs.py:340"),
         "ns_fused_step": ("rmt_tpu_torch/csrc/ns.cu",
                           "rmt_tpu/ops/pallas_ns.py:112"),
         "ns_fused_step_wide": ("rmt_tpu_torch/csrc/ns_wide.cu",
                                "rmt_tpu/ops/pallas_ns.py:112"),
     }
     # launches: the main paths' runs together (the two DME legs' timed
-    # runs, the N1 sweep, both f32_wide legs and rmtExe M2); each path's
-    # own count rides along (the CH4 guard's too)
-    main_paths = ("f32x", "f32", "n1", "f32_wide_f32x", "f32_wide_f32", "m2")
+    # runs, the N1 sweep, both f32_wide legs, rmtExe M2 and the n2_opts
+    # checks); each path's own count rides along (the CH4 guard's too)
+    main_paths = ("f32x", "f32", "n1", "f32_wide_f32x", "f32_wide_f32", "m2",
+                  "n2_opts")
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[p][k] for p in main_paths),
                     launches_by_path={p: v[k] for p, v in by_path.items()},

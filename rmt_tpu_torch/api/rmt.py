@@ -629,7 +629,7 @@ def _m2_solve(spec, p, y_init, t_start, opts, model_id):
         lambda t, y: rhs(t, y, p), y0, ts, rtol=opts["rtol"],
         atol=opts["atol"], jac=lambda t, y: jac_x(y),
         max_steps=max(1024, 256 * spec.t_no), block=(var_no, spec.z_no),
-        f_stages=lambda ts3, Y: rhs(ts3, Y, p))
+        f_stages=lambda ts3, Y: rhs(ts3, Y, p), batched=True)
     return ys[:, 0, :], ts, stats
 
 

@@ -8,7 +8,10 @@
 #
 # The user's lambdas call math.exp / math.pow, so each lambda is re-bound
 # to a shim ``math`` that dispatches on its argument:
-#   * a torch.Tensor goes to the native torch op (torch.exp, ...);
+#   * a torch.Tensor goes to the native torch op (torch.exp, ...), or,
+#     with the switch RMT_TORCH_ACCURATE_F32 on, exp/log/log10/pow go to
+#     ops/accurate_math (compensated float32 algorithms; float64 passes
+#     through to the native ops);
 #   * a value with a ``_math_dispatch`` hook handles the call itself --
 #     DF32 pairs (ops/df32.py) run the compensated transcendentals, and
 #     the CUDA code generator's symbolic values (ops/cuda_rhs.py) record
@@ -17,20 +20,50 @@
 # Any DSL variable may be overridden with a tensor (kinetic_overrides),
 # which makes kinetic constants sweepable per member.
 #
-# rmt_tpu's accurate_math (compensated f32 transcendentals that answer a
-# defect of the TPU's libm) is not part of this port: on CUDA the plain
-# f32 path uses the native expf/logf/powf family.
+# rmt_tpu turns its switch (RMT_TPU_ACCURATE_F32) on by default because a
+# TPU's libm approximates float32 exp/log/pow to about 1e-5. The port's
+# switch is read where the shim dispatches (so it can be flipped between
+# calls, or for a block of code with accurate_f32_math), and its default
+# comes from a measurement on the card (scripts/libm_f32_error.py,
+# PERF.md section 6): _DEFAULT.
 
 from __future__ import annotations
 
+import contextlib
 import math as _math
+import os
 import types
 from typing import Any, Mapping
 
 import torch
 
 from ..constants import R_CONST
+from ..ops import accurate_math as _am
 from ..ops import df32 as _df
+
+SWITCH = "RMT_TORCH_ACCURATE_F32"
+_DEFAULT = "0"
+_override: list[bool] = []
+
+
+def accurate_f32() -> bool:
+    """Whether the shim sends float32 exp/log/log10/pow to
+    ops/accurate_math: the innermost accurate_f32_math block, else the
+    environment switch RMT_TORCH_ACCURATE_F32 (default _DEFAULT)."""
+    if _override:
+        return _override[-1]
+    return os.environ.get(SWITCH, _DEFAULT) != "0"
+
+
+@contextlib.contextmanager
+def accurate_f32_math(on: bool):
+    """Set the switch for the code inside the block, whatever the
+    environment says."""
+    _override.append(bool(on))
+    try:
+        yield
+    finally:
+        _override.pop()
 
 
 def _hook(*args):
@@ -41,12 +74,14 @@ def _hook(*args):
     return None
 
 
-def _unary(name, torch_fn, math_fn):
+def _unary(name, torch_fn, math_fn, am_fn=None):
     def fn(x):
         h = _hook(x)
         if h is not None:
             return h(name, x)
         if isinstance(x, torch.Tensor):
+            if am_fn is not None and accurate_f32():
+                return am_fn(x)
             return torch_fn(x)
         return math_fn(x)
 
@@ -66,8 +101,8 @@ class _MathShim(types.ModuleType):
     def __init__(self):
         super().__init__("math")
 
-    exp = _unary("exp", torch.exp, _math.exp)
-    log10 = _unary("log10", torch.log10, _math.log10)
+    exp = _unary("exp", torch.exp, _math.exp, _am.exp)
+    log10 = _unary("log10", torch.log10, _math.log10, _am.log10)
     sqrt = _unary("sqrt", torch.sqrt, _math.sqrt)
     fabs = _unary("fabs", torch.abs, _math.fabs)
 
@@ -77,9 +112,15 @@ class _MathShim(types.ModuleType):
         if h is not None:
             return h("log", x, base)
         if isinstance(x, torch.Tensor) or isinstance(base, torch.Tensor):
-            lg = torch.log(torch.as_tensor(x))
-            return lg if base is None else lg / torch.log(
-                torch.as_tensor(base))
+            log = _am.log if accurate_f32() else torch.log
+            x = torch.as_tensor(x)
+            lg = log(x)
+            if base is None:
+                return lg
+            if not isinstance(base, torch.Tensor):
+                # a Python base takes the dtype of x: its log rounds as x's
+                base = torch.as_tensor(base, dtype=x.dtype, device=x.device)
+            return lg / log(base)
         return _math.log(x) if base is None else _math.log(x, base)
 
     @staticmethod
@@ -88,7 +129,7 @@ class _MathShim(types.ModuleType):
         if h is not None:
             return h("pow", x, y)
         if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
-            return torch.pow(x, y)
+            return (_am.pow if accurate_f32() else torch.pow)(x, y)
         return _math.pow(x, y)
 
     power = pow

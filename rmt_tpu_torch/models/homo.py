@@ -286,12 +286,18 @@ def make_n2_rhs(spec: HomoSpec, frozen_pressure_jac: bool = False,
 
     accurate_rates="df32" evaluates the kinetics chain, the
     stoichiometric sum nu@R and the r-weighted heat-of-reaction sum in
-    compensated double-float32 pairs (ops/df32.py). accurate_rates=False
-    evaluates everything in the dtype of the state (f32 or f64).
+    compensated double-float32 pairs (ops/df32.py). accurate_rates=True
+    evaluates the same chain in float64 inside an evaluation in the
+    state's dtype: its inputs (temperature, pressure, mole fractions,
+    concentrations) are cast up, and nu@R and the heat-of-reaction sum
+    are cast back to the state's dtype (near equilibrium nu@R is a small
+    difference of large rates, so float32 rate rounding is amplified
+    about 1e3 times). accurate_rates=False evaluates everything in the
+    dtype of the state (f32 or f64).
     """
-    if accurate_rates not in (False, "df32"):
-        raise NotImplementedError(
-            "the port supports accurate_rates False or 'df32'")
+    if accurate_rates not in (False, True, "df32"):
+        raise ValueError(
+            "make_n2_rhs supports accurate_rates False, True or 'df32'")
     idx = spec.comp_idx
     n_comp = spec.n_comp
     z_no = spec.z_no
@@ -347,6 +353,8 @@ def make_n2_rhs(spec: HomoSpec, frozen_pressure_jac: bool = False,
         ga_de_dl = ga_de_eos / d["GaDe0"]
 
         ko = p["kinetic_overrides"]
+        # the kinetics chain's dtype: float64 under accurate_rates=True
+        hi = torch.float64 if accurate_rates and not df32_mode else y.dtype
         if df32_mode:
             DF = _df32.DF32.from_value
             r0_df = spec.rates(DF(T_re), DF(P_z), DF(mo_fri), DF(co_spi_re),
@@ -358,14 +366,15 @@ def make_n2_rhs(spec: HomoSpec, frozen_pressure_jac: bool = False,
                 ri_df = term if ri_df is None else ri_df + term
             ri = ri_df.value(y.dtype)
         else:
-            r0 = spec.rates(T_re, P_z, mo_fri, co_spi_re, ko)  # (n_rxn, z)
-            ri = torch.einsum("mk,mz->kz", nu_comp, r0.to(y.dtype))
+            r0 = spec.rates(T_re.to(hi), P_z.to(hi), mo_fri.to(hi),
+                            co_spi_re.to(hi), ko).to(hi)  # (n_rxn, z)
+            ri = torch.einsum("mk,mz->kz", nu_comp.to(hi), r0).to(y.dtype)
 
         cp_mean_i = thermo.cp_mean(T_re, idx)           # (zNo, n_comp)
         cp_mix = torch.sum(mo_fri.T * cp_mean_i, dim=-1)
         cp_mix_dl = cp_mix / d["GaCpMeanMix0"]
         cp_mix_eff_dl = cp_mix_dl * eps
-        he_re_t = _reaction_energetics(spec, T_re)      # (zNo, n_rxn)
+        he_re_t = _reaction_energetics(spec, T_re.to(hi))  # (zNo, n_rxn)
         if df32_mode:
             # energetics stay plain f32; the r0-weighted sum keeps the
             # rate pairs so no re-rounding enters
@@ -376,7 +385,7 @@ def make_n2_rhs(spec: HomoSpec, frozen_pressure_jac: bool = False,
                 ov_df = term if ov_df is None else ov_df + term
             ov_he_re_t = ov_df.value(y.dtype)
         else:
-            ov_he_re_t = torch.sum(r0.to(y.dtype).T * he_re_t, dim=-1)
+            ov_he_re_t = torch.sum(r0.T * he_re_t, dim=-1).to(y.dtype)
         qm = _heat_exchange(p["Tm"], T_re, p["U"], d["aEff"])
 
         const_f1 = 1 / (eps * (d["zf"] / d["vf"]))
@@ -427,6 +436,61 @@ def make_n2_bidiag_blocks(spec: HomoSpec):
         make_n2_rhs(spec, frozen_pressure_jac=True), spec.var_no_n2,
         spec.z_no
     )
+
+
+def _member_last(tree):
+    """(B, k) leaves of a member-first parameter dict as (k, B); (B,)
+    leaves and the kinetic overrides as they are."""
+    return {k: (_member_last(v) if isinstance(v, Mapping)
+                else v.T if v.dim() == 2 else v) for k, v in tree.items()}
+
+
+def make_n2_rhs_b(spec: HomoSpec, frozen_pressure_jac: bool = False,
+                  accurate_rates=False):
+    """Natively batched N2 RHS with a member-last internal layout:
+    rhs_b(t (B,), y (B, n), p, d) -> (B, n), the leaves of p and d
+    broadcast to a leading member axis ((B,) scalars, (B, n_comp)
+    vectors). Same math as make_n2_rhs, quirks included.
+
+    It is the fused RHS kernel's plain-PyTorch core
+    (ops/cuda_rhs.n2_core_ml) on Y (var, z, B), so its float32 evaluation
+    takes the kernel's order of operations; float64 states evaluate with
+    float64 constants. Only accurate_rates False or "df32" (rmt_tpu's
+    make_n2_rhs_b: the float64-kinetics legs keep the vmapped RHS).
+    frozen_pressure_jac as in make_n2_rhs."""
+    from ..ops import cuda_rhs
+
+    if accurate_rates not in (False, "df32"):
+        raise ValueError(
+            "make_n2_rhs_b supports accurate_rates False or 'df32' only")
+    df32_mode = accurate_rates == "df32"
+    var_no, z_no = spec.var_no_n2, spec.z_no
+
+    def rhs(t, y, p, d):
+        Bsz = y.shape[0]
+        Y = y.reshape(Bsz, var_no, z_no).permute(1, 2, 0)  # (var, z, B)
+        out = cuda_rhs.n2_core_ml(spec, df32_mode, Y, _member_last(p),
+                                  _member_last(d),
+                                  frozen_pressure=frozen_pressure_jac)
+        return out.permute(2, 0, 1).reshape(Bsz, -1)
+
+    return rhs
+
+
+def make_n2_colored_jacobian_b(spec: HomoSpec):
+    """Batched colored Jacobian (B, n, n) through the member-last RHS
+    with the pressure march frozen: 2*var_no JVP tangents broadcast
+    across the batch (members never mix)."""
+    from ..ops.jacobian import banded_coloring, batched_colored_jacobian
+
+    rhs_b = make_n2_rhs_b(spec, frozen_pressure_jac=True)
+    coloring = banded_coloring(spec.var_no_n2, spec.z_no)
+
+    def jac(t, y, p, d):
+        return batched_colored_jacobian(lambda yy: rhs_b(t, yy, p, d),
+                                        coloring)(y)
+
+    return jac
 
 
 # ---------------------------------------------------------------------------

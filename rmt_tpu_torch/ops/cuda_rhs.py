@@ -9,7 +9,11 @@
 # backward-difference convection with the inlet BC (modelEquationN2
 # semantics, QUIRKs included, pbHomoReactor.py:3706-4134). Two modes:
 # plain f32, and df32 (kinetics, nu@R and the heat-of-reaction sum in
-# compensated pairs, ops/df32.py).
+# compensated pairs, ops/df32.py). With the DSL's accurate-f32 switch on
+# (kinetics/dsl.py, RMT_TORCH_ACCURATE_F32) the plain float32 exp, log,
+# log10 and pow of the rate program are ops/accurate_math's algorithms,
+# emitted as device functions (_AM_SOURCE): the plain mode's
+# accurate-math variant, launched as n2_rhs_plain_am.
 #
 # The chemistry is the user's, so the kernel source is GENERATED: the
 # DSL program (RateProgram.call_list) is traced with symbolic values
@@ -52,12 +56,13 @@ import torch
 
 from ..constants import EPS_CONST, R_CONST, Tref
 from ..data import species as DB
+from ..kinetics import dsl as _dsl
 from ..kinetics.dsl import _MATH_SHIM
 from . import _build
+from . import accurate_math as _am
 from . import df32 as _df32
-from .df32 import f32c
 
-LAUNCHES = {"n2_rhs_df32": 0, "n2_rhs_plain": 0}
+LAUNCHES = {"n2_rhs_df32": 0, "n2_rhs_plain": 0, "n2_rhs_plain_am": 0}
 
 # parameter leaves the N2 core reads, in fixed packing order
 _P_1D = ("T0", "BeVoFr", "PaDi", "P0", "Tm", "U")
@@ -93,11 +98,12 @@ def _unpack(leaves1, leaves2, ko_keys, reps):
 
 
 class _Consts:
-    """The f32 constants of one spec, shared by the twin and the kernel
-    generator (Python floats holding exact f32 values)."""
+    """The constants of one spec in one float type (float32 by default),
+    shared by the twin and the kernel generator; c(x) rounds a Python
+    number to that type."""
 
-    def __init__(self, spec):
-        f = np.float32
+    def __init__(self, spec, dtype=np.float32):
+        f = self.f = np.dtype(dtype).type
         self.dz = f(1.0 / (spec.z_no - 1))
         self.inv_dz = f(f(1.0) / self.dz)
         self.eps_c = f(EPS_CONST)
@@ -105,17 +111,19 @@ class _Consts:
         self.tref = f(Tref)
         self.nu = np.asarray(spec.stoich.nu_comp, dtype=np.float64)
         self.eq_nu = np.asarray(spec.stoich.eq_nu, dtype=np.float64)
-        self.dh25 = np.asarray(spec.stoich.dh_rxn_25, dtype=np.float32)
-        self.cp = np.asarray(DB.CP_COEFF[spec.comp_idx], dtype=np.float32)
-        self.cp_eq = np.asarray(DB.CP_COEFF[spec.stoich.eq_idx],
-                                dtype=np.float32)
-        # Cp at the reference temperature, in f32 arithmetic
+        self.dh25 = np.asarray(spec.stoich.dh_rxn_25, dtype=f)
+        self.cp = np.asarray(DB.CP_COEFF[spec.comp_idx], dtype=f)
+        self.cp_eq = np.asarray(DB.CP_COEFF[spec.stoich.eq_idx], dtype=f)
+        # Cp at the reference temperature, in the type's arithmetic
         self.cp_ref = [self._poly(c, self.tref) for c in self.cp]
         self.cp_eq_ref = [self._poly(c, self.tref) for c in self.cp_eq]
 
     @staticmethod
     def _poly(c, T):
         return (c[0] + c[1] * T + c[2] * T * T + c[3] * T * T * T)
+
+    def c(self, x) -> float:
+        return float(self.f(x))
 
 
 def _cp_poly(c, T):
@@ -126,15 +134,21 @@ def _cp_poly(c, T):
 
 # -- plain-PyTorch twin ---------------------------------------------------------
 
-def n2_core_ml(spec, df32_mode: bool, Y, p, d):
-    """Member-last N2 RHS core: Y (var, z, M) -> dY/dt (var, z, M), f32.
+def n2_core_ml(spec, df32_mode: bool, Y, p, d, frozen_pressure=False):
+    """Member-last N2 RHS core: Y (var, z, M) -> dY/dt (var, z, M), in
+    Y's dtype (float32 on the kernel's path; float64 with the constants in
+    float64, for homo.make_n2_rhs_b).
 
     p/d leaves are member-last: (M,) scalars, (n_comp, M) vectors. The
     order of every operation is the kernel's (csrc is generated from the
     same steps), including the sequential prefix loops of the pressure
-    march."""
+    march. frozen_pressure=True detaches R T / MW, the pressure march's
+    only dependence on the state (homo.make_n2_rhs's frozen_pressure_jac:
+    the Jacobian is then block bidiagonal in z)."""
     n_comp, z_no = spec.n_comp, spec.z_no
-    K = _Consts(spec)
+    K = _Consts(spec, np.float64 if Y.dtype == torch.float64
+                else np.float32)
+    cst = K.c
     dz, one = float(K.dz), 1.0
 
     c_raw = [Y[s] for s in range(n_comp)]                 # (z, M) each
@@ -149,7 +163,7 @@ def n2_core_ml(spec, df32_mode: bool, Y, p, d):
     mo_fri = [c / ctot for c in co_re]
     mi_mo_we = functools.reduce(
         operator.add, [mo_fri[s] * d["mw"][s] for s in range(n_comp)]
-    ) * f32c(1e-3)
+    ) * cst(1e-3)
 
     # frozen-velocity assumption (QUIRK, pbHomoReactor.py:4066)
     su_ga_ve = d["SuGaVe0"]
@@ -164,6 +178,8 @@ def n2_core_ml(spec, df32_mode: bool, Y, p, d):
     # R / MW as a true division (a Python number over a tensor would
     # run as reciprocal-then-multiply, two roundings)
     rg_t = (torch.full_like(mi_mo_we, float(K.r_const)) / mi_mo_we) * T_re
+    if frozen_pressure:
+        rg_t = rg_t.detach()
 
     # explicit axial pressure march as the affine recurrence
     # P_{z+1} = a_z P_z + b, in closed form (QUIRK, pbHomoReactor.py:
@@ -191,7 +207,7 @@ def n2_core_ml(spec, df32_mode: bool, Y, p, d):
     else:
         r_list = spec.rates.call_list(T_re, P_z, mo_fri, co_re, ko)
         r_list = [r if isinstance(r, torch.Tensor)
-                  else torch.full_like(T_re, f32c(r)) for r in r_list]
+                  else torch.full_like(T_re, cst(r)) for r in r_list]
 
     ri = []
     for s in range(n_comp):
@@ -200,12 +216,12 @@ def n2_core_ml(spec, df32_mode: bool, Y, p, d):
             cmk = float(K.nu[m, s])
             if cmk == 0.0:
                 continue
-            term = r_m * (cmk if df32_mode else f32c(cmk))
+            term = r_m * (cmk if df32_mode else cst(cmk))
             acc = term if acc is None else acc + term
         if acc is None:
             ri.append(torch.zeros_like(T_re))
         else:
-            ri.append(acc.value() if df32_mode else acc)
+            ri.append(acc.value(Y.dtype) if df32_mode else acc)
 
     # mixture heat capacity (plain f32)
     cp_mean_i = [0.5 * (float(K.cp_ref[s]) + _cp_poly(K.cp[s], T_re))
@@ -228,13 +244,13 @@ def n2_core_ml(spec, df32_mode: bool, Y, p, d):
                 cme = float(K.eq_nu[m, e])
                 if cme == 0.0:
                     continue
-                t_ = f32c(cme) * cp_mean_eq[e]
+                t_ = cst(cme) * cp_mean_eq[e]
                 en = t_ if en is None else en + t_
             dh = float(K.dh25[m])
             he_m = en * dT + dh if en is not None else torch.full_like(dT, dh)
             term = r_m * he_m
             ov = term if ov is None else ov + term
-        ov_he_re_t = ov.value() if df32_mode else ov
+        ov_he_re_t = ov.value(Y.dtype) if df32_mode else ov
         # Qm with the Tm == 0 => adiabatic rule (rmtUtility.py:437-444)
         qm = torch.where(p["Tm"] == 0.0, torch.zeros_like(T_re),
                          p["U"] * d["aEff"] * (p["Tm"] - T_re))
@@ -260,15 +276,19 @@ def n2_core_ml(spec, df32_mode: bool, Y, p, d):
     return torch.stack(rows, dim=0)                        # (var, z, M)
 
 
-def n2_rhs_twin(spec, df32_mode, ko_keys, y, leaves1, leaves2):
-    """The fused RHS in plain PyTorch: y (M, n) -> (M, n) f32."""
+def n2_rhs_twin(spec, df32_mode, ko_keys, y, leaves1, leaves2,
+                accurate_math=False):
+    """The fused RHS in plain PyTorch: y (M, n) -> (M, n) f32, the DSL's
+    float32 transcendentals accurate (ops/accurate_math) or native as
+    accurate_math says, whatever the switch."""
     M = y.shape[0]
     B = leaves1.shape[1]
     if M % B:
         raise ValueError(f"batch {M} not a multiple of member count {B}")
     p, d = _unpack(leaves1, leaves2, ko_keys, M // B)
     Y = y.to(_f32).reshape(M, spec.var_no_n2, spec.z_no).permute(1, 2, 0)
-    out = n2_core_ml(spec, df32_mode, Y, p, d)
+    with _dsl.accurate_f32_math(accurate_math):
+        out = n2_core_ml(spec, df32_mode, Y, p, d)
     return out.permute(2, 0, 1).reshape(M, -1)
 
 
@@ -416,14 +436,31 @@ def _is_int(v):
     return _number(v) and float(v).is_integer()
 
 
+def _int_pow_expr(x: str, n: int) -> str:
+    """accurate_math.int_pow's product chain as a C expression."""
+    if n == 0:
+        return "1.0f"
+    acc, base, k = None, x, abs(n)
+    while k:
+        if k & 1:
+            acc = base if acc is None else f"({acc} * {base})"
+        k >>= 1
+        if k:
+            base = f"({base} * {base})"
+    return f"(1.0f / {acc})" if n < 0 else acc
+
+
 class _Emitter:
     """Emits the body of one rates device function from a traced DAG,
     reproducing at each node the operation Python dispatch performs on
-    actual values (torch ops for plain f32; DF32 methods for pairs)."""
+    actual values (torch ops for plain f32; DF32 methods for pairs;
+    ops/accurate_math's functions for the plain f32 exp, log, log10 and
+    pow where `accurate` says)."""
 
-    def __init__(self, graph):
+    def __init__(self, graph, accurate=False):
         self.g = graph
         self.names = {}
+        self.accurate = accurate
 
     def _kind(self, v):
         return v.kind if isinstance(v, _Sym) else "c"
@@ -489,7 +526,24 @@ class _Emitter:
             "pow": lambda: self.dfrpow_method(b, a),
         }[op]()
 
+    def am_pow(self, a, b):
+        """accurate_math.pow semantics on f32."""
+        if (_number(b) and float(b).is_integer()
+                and abs(b) <= _am.MAX_INT_POW and isinstance(a, _Sym)):
+            return _int_pow_expr(self.f(a), int(b))
+        return f"am_pow({self.f(a)}, {self.f(b)})"
+
     def call(self, name, args, kind):
+        if kind != "df" and self.accurate and name != "sqrt" \
+                and name != "fabs":
+            x = self.f(args[0])
+            if name == "pow":
+                return self.am_pow(*args)
+            if name == "log":
+                base = args[1]
+                return f"am_log({x})" if base is None else \
+                    f"(am_log({x}) / am_log({self.f(base)}))"
+            return f"am_{name}({x})"
         if kind != "df":
             x = self.f(args[0])
             if name == "pow":
@@ -538,9 +592,9 @@ class _Emitter:
         return lines
 
 
-def _rates_function(spec, df32_mode, ko_keys):
+def _rates_function(spec, df32_mode, ko_keys, accurate_math=False):
     g, rates = trace_rates(spec, df32_mode, ko_keys)
-    em = _Emitter(g)
+    em = _Emitter(g, accurate_math)
     inputs = {"T": "T", "P": "P"}
     for i in range(spec.n_comp):
         inputs[f"mofri{i}"] = f"mofri[{i}]"
@@ -665,10 +719,13 @@ def spec_geometry(spec, accurate_rates=False, ko_keys=()):
                          _MT_DF32 if accurate_rates == "df32" else _MT_PLAIN)
 
 
-def kernel_source(spec, accurate_rates=False, ko_keys=()) -> str:
+def kernel_source(spec, accurate_rates=False, ko_keys=(),
+                  accurate_math=False) -> str:
     """The complete CUDA translation unit of the fused RHS for one spec
-    and mode: df32 helpers, the generated rates function and the kernel
-    around it (the rest of n2_core_ml), for the tile of spec_geometry."""
+    and mode: df32 helpers, with accurate_math the accurate-math device
+    functions, the generated rates function and the kernel around it (the
+    rest of n2_core_ml), for the tile of spec_geometry. accurate_math is
+    written into the source, so it is part of the build's cache key."""
     df32_mode = accurate_rates == "df32"
     K = _Consts(spec)
     nc, nz, nr = spec.n_comp, spec.z_no, spec.stoich.n_rxn
@@ -690,6 +747,8 @@ def kernel_source(spec, accurate_rates=False, ko_keys=()) -> str:
     L.append("// Generated by rmt_tpu_torch/ops/cuda_rhs.py -- the fused N2 RHS "
              f"({'df32' if df32_mode else 'plain f32'} mode) for one chemistry.")
     L.append(_SOURCE_NOTE)
+    L.append(f"// accurate f32 math: {'on' if accurate_math else 'off'} (the "
+             "rate program's plain float32 exp, log, log10 and pow)")
     L.append("#include <cuda_runtime.h>")
     consts = {
         "DF_LN2_HI": _df32.LN2_HI, "DF_LN2_LO": _df32.LN2_LO,
@@ -703,7 +762,9 @@ def kernel_source(spec, accurate_rates=False, ko_keys=()) -> str:
     L.append("#define DF_EXP_TAIL {" + ", ".join(h(c) for c in _df32.EXP_TAIL) + "}")
     L.append("#define DF_LOG_TAIL {" + ", ".join(h(c) for c in _df32.LOG_TAIL) + "}")
     L.append((_build.CSRC / "df32.cuh").read_text())
-    L.append(_rates_function(spec, df32_mode, ko_keys))
+    if accurate_math:
+        L.append(am_source())
+    L.append(_rates_function(spec, df32_mode, ko_keys, accurate_math))
 
     K_body = []
     add = K_body.append
@@ -904,6 +965,95 @@ def kernel_source(spec, accurate_rates=False, ko_keys=()) -> str:
     return "\n".join(L) + "\n"
 
 
+def am_source() -> str:
+    """ops/accurate_math's exp, log, log10 and pow as device functions:
+    the same constants, the same Horner order and the same guards; each
+    float32 operation rounds on its own under -fmad=false, so they equal
+    the PyTorch functions bit for bit. The bit views are
+    __float_as_int / __int_as_float, torch.round is rintf (half to even),
+    and a guard that fails takes the native libm function, as the
+    PyTorch where() does."""
+    h = _hexf
+    exp_horner = "\n".join(f"  p = p * r + {h(c)};"
+                           for c in _am.EXP_COEFS[1:])
+    log_horner = "\n".join(f"  p = p * s2 + {h(c)};"
+                           for c in _am.LOG_COEFS[1:])
+    return f"""\
+__device__ __forceinline__ float am_pow2(int e) {{
+  return __int_as_float((e + 127) << 23);
+}}
+__device__ __forceinline__ float am_ldexp2(float x, int k) {{
+  const int k1 = min(max(k, -126), 127);
+  const int k2 = min(max(k - k1, -126), 127);
+  return (x * am_pow2(k1)) * am_pow2(k2);
+}}
+// exp(x + extra) for |x| < {_am.EXP_LIMIT}
+template <bool EXTRA>
+__device__ __forceinline__ float am_exp_kernel(float x, float extra) {{
+  const float k = rintf(x * {h(_am.INV_LN2)});
+  float r = (x - k * {h(_am.LN2_HI)}) - k * {h(_am.LN2_LO)};
+  if (EXTRA) r = r + extra;
+  float p = {h(_am.EXP_COEFS[0])};
+{exp_horner}
+  p = p * r + 1.0f;
+  p = p * r + 1.0f;
+  return am_ldexp2(p, (int)k);
+}}
+__device__ __forceinline__ float am_exp(float x) {{
+  return fabsf(x) < {h(_am.EXP_LIMIT)} ? am_exp_kernel<false>(x, 0.0f)
+                                        : expf(x);
+}}
+// log(x) = hi + lo for positive normal x
+__device__ __forceinline__ void am_log_ext(float x, float& hi, float& lo) {{
+  const int e = ((__float_as_int(x) >> 23) & 0xFF) - 126;
+  float m = am_ldexp2(x, -e);
+  const bool small = m < {h(_am.SQRT_HALF)};
+  m = small ? m + m : m;
+  const float ef = (float)(e - (small ? 1 : 0));
+  const float s = (m - 1.0f) / (m + 1.0f);
+  const float s2 = s * s;
+  float p = {h(_am.LOG_COEFS[0])};
+{log_horner}
+  const float poly = (s * s2) * p;
+  const float two_s = s + s;
+  hi = ef * {h(_am.LN2_HI)} + two_s;
+  lo = ((ef * {h(_am.LN2_HI)} - (hi - two_s)) + poly) + ef * {h(_am.LN2_LO)};
+}}
+__device__ __forceinline__ bool am_log_ok(float x) {{
+  return x >= {h(_am.MIN_NORMAL)} && isfinite(x);
+}}
+__device__ __forceinline__ float am_log(float x) {{
+  if (!am_log_ok(x)) return logf(x);
+  float hi, lo;
+  am_log_ext(x, hi, lo);
+  return hi + lo;
+}}
+__device__ __forceinline__ float am_log10(float x) {{
+  if (!am_log_ok(x)) return log10f(x);
+  float hi, lo;
+  am_log_ext(x, hi, lo);
+  return (hi + lo) * {h(_am.INV_LN10)};
+}}
+__device__ __forceinline__ float am_split_hi(float a) {{
+  const float c = {h(_am.SPLIT)} * a;
+  return c - (c - a);
+}}
+// x ** y through the compensated log and a Dekker product of y and log(x)
+__device__ __forceinline__ float am_pow(float x, float y) {{
+  if (!(am_log_ok(x) && isfinite(y))) return powf(x, y);
+  float hi, lo;
+  am_log_ext(x, hi, lo);
+  const float p = y * hi;
+  const float a_hi = am_split_hi(y), a_lo = y - a_hi;
+  const float b_hi = am_split_hi(hi), b_lo = hi - b_hi;
+  const float err = (((a_hi * b_hi - p) + a_hi * b_lo) + a_lo * b_hi)
+                    + a_lo * b_lo;
+  const float p_lo = err + y * lo;
+  return fabsf(p) < {h(_am.EXP_LIMIT)} ? am_exp_kernel<true>(p, p_lo)
+                                        : expf(p);
+}}"""
+
+
 _SOURCE_NOTE = """\
 // Replaces the TPU kernel rmt_tpu/ops/pallas_rhs.py::build_n2_fused (its
 // pallas_call). One thread per (row, node), a block of MT rows x NZ nodes.
@@ -959,13 +1109,27 @@ def _int_pow_muls(n):
     return max(n.bit_length() + bin(n).count("1") - 2, 0)
 
 
-def _node_ops(op, args, kind):
+# float32 operations of an accurate-math call, counted from am_source()
+# (adds, multiplies, divides and rintf; bit operations and selects not)
+_AM_OPS = {"call:exp": 24, "call:log": 27, "call:log10": 28,
+           "call:pow": 70}
+
+
+def _node_ops(op, args, kind, accurate=False):
     """float32 operations of one DAG node. A plain add, multiply, divide
-    or libm call counts 1; a pair operation counts its error-free
-    transforms."""
+    or libm call counts 1, an accurate-math call its operations; a pair
+    operation counts its error-free transforms."""
     if op == "in":
         return 0
     if kind != "df":
+        if accurate and op == "call:pow":
+            y = args[1]
+            if (_number(y) and float(y).is_integer()
+                    and abs(y) <= _am.MAX_INT_POW):
+                return _int_pow_muls(y) + (1 if float(y) < 0 else 0)
+        if accurate and op in _AM_OPS:
+            return _AM_OPS[op] + (_AM_OPS[op] + 1 if op == "call:log"
+                                  and args[1] is not None else 0)
         return 0 if op == "neg" else 1
     if op == "pow" or op == "call:pow":
         x, y = args
@@ -979,7 +1143,8 @@ def _node_ops(op, args, kind):
     return _DF_OPS[op]
 
 
-def operation_count(spec, accurate_rates=False, ko_keys=()) -> int:
+def operation_count(spec, accurate_rates=False, ko_keys=(),
+                    accurate_math=False) -> int:
     """float32 operations one (row, node) of the fused RHS needs: the
     traced rate program node by node, plus the fixed part of n2_core_ml
     counted from its steps (the pressure march at its mean depth over the
@@ -987,7 +1152,7 @@ def operation_count(spec, accurate_rates=False, ko_keys=()) -> int:
     nodes over the card's float32 rate."""
     df32_mode = accurate_rates == "df32"
     g, _ = trace_rates(spec, df32_mode, tuple(ko_keys))
-    ops = sum(_node_ops(*node) for node in g.nodes)
+    ops = sum(_node_ops(*node, accurate=accurate_math) for node in g.nodes)
     nc, nz, nr = spec.n_comp, spec.z_no, spec.stoich.n_rxn
     K = _Consts(spec)
     acc, mul = (_DF_OPS["add"], _DF_OPS["mul"]) if df32_mode else (1, 1)
@@ -1013,18 +1178,25 @@ def build_n2_fused(spec, accurate_rates=False, ko_keys=()):
     where y is a contiguous (M, n) f32 tensor with M = s*B (stage-major
     stacking) and the leaves come from pack_leaves(p, d, ko_keys); the
     result is a new contiguous (M, n) tensor. A CUDA y launches the
-    generated kernel (built at first call); a CPU y runs the twin."""
+    generated kernel (built at first call); a CPU y runs the twin.
+    The DSL's accurate-f32 switch as it stands when rhs_f is made
+    (kinetics/dsl.accurate_f32) fixes for this rhs_f whether the rate
+    program's plain float32 exp/log/log10/pow are ops/accurate_math's, in
+    the kernel and in its twin alike; the plain mode's accurate variant
+    is the kernel n2_rhs_plain_am."""
     if accurate_rates not in (False, "df32"):
         raise ValueError("fused RHS supports accurate_rates False or 'df32'")
     df32_mode = accurate_rates == "df32"
     ko_keys = tuple(ko_keys)
-    name = "n2_rhs_df32" if df32_mode else "n2_rhs_plain"
+    accurate_math = _dsl.accurate_f32()
+    name = ("n2_rhs_df32" if df32_mode
+            else "n2_rhs_plain_am" if accurate_math else "n2_rhs_plain")
     var_no, z_no = spec.var_no_n2, spec.z_no
     n = var_no * z_no
     state = {"lib": None}
 
     def source():
-        return kernel_source(spec, accurate_rates, ko_keys)
+        return kernel_source(spec, accurate_rates, ko_keys, accurate_math)
 
     geo = spec_geometry(spec, accurate_rates, ko_keys)
     n_l1 = len(_P_1D) + len(_D_1D) + len(ko_keys)
@@ -1040,7 +1212,8 @@ def build_n2_fused(spec, accurate_rates=False, ko_keys=()):
 
     def rhs_f(y, leaves1, leaves2):
         if not y.is_cuda:
-            return n2_rhs_twin(spec, df32_mode, ko_keys, y, leaves1, leaves2)
+            return n2_rhs_twin(spec, df32_mode, ko_keys, y, leaves1, leaves2,
+                               accurate_math)
         M = y.shape[0]
         B = leaves1.shape[1]
         if y.shape != (M, n) or M % B:
@@ -1062,5 +1235,9 @@ def build_n2_fused(spec, accurate_rates=False, ko_keys=()):
     rhs_f.source = source
     rhs_f.geometry = geo
     rhs_f.kernel_name = name
-    rhs_f.operations = lambda: operation_count(spec, accurate_rates, ko_keys)
+    rhs_f.accurate_math = accurate_math
+    rhs_f.twin = lambda y, l1, l2: n2_rhs_twin(
+        spec, df32_mode, ko_keys, y, l1, l2, accurate_math)
+    rhs_f.operations = lambda: operation_count(spec, accurate_rates, ko_keys,
+                                               accurate_math)
     return rhs_f

@@ -27,19 +27,21 @@
 #     block mode and every node's particle on root_batched in tridiagonal
 #     block mode with the bulk-homotopy rescue, one host read an interval
 #     deciding whether the rescue runs.
-#   * run_n2_ensemble_lockstep: the lockstep integrator in float32. Stage
-#     residuals go through the fused N2 RHS (ops/cuda_rhs.py: the
-#     generated CUDA kernel for tensors on the card, its plain twin on
-#     the CPU). The stage systems are solved either by Newton-Schulz
-#     preconditioners kept warm by the fused kernel of ops/cuda_ns.py,
-#     from the dense colored Jacobian, or (exact_solve=True) exactly by
-#     the block kernels of ops/cuda_block.py, from Jacobian blocks
-#     gathered by colored JVPs. microbatch=K bounds the live state: a
-#     host loop integrates the sweep K members at a time and joins the
-#     slices.
+#   * run_n2_ensemble_lockstep: the lockstep integrator, float32 states
+#     by default (float64 with dtype=). Stage residuals go through the
+#     fused N2 RHS (ops/cuda_rhs.py: the generated CUDA kernel for
+#     tensors on the card, its plain twin on the CPU) where the mode
+#     allows it, else through the PyTorch RHS (accurate_rates True and
+#     "full", batched_rhs, fused_rhs=False, float64). The stage systems
+#     are solved either by Newton-Schulz preconditioners kept warm by the
+#     fused kernel of ops/cuda_ns.py, from the dense Jacobian, or
+#     (exact_solve=True) exactly by the block kernels of
+#     ops/cuda_block.py, from Jacobian blocks gathered by colored JVPs.
+#     microbatch=K bounds the live state: a host loop integrates the
+#     sweep K members at a time and joins the slices.
 #
 # Left for later ports: mesh sharding (make_mesh, shard_batch; mesh=
-# raises), accurate_rates=True/"full" and batched_rhs.
+# raises NotImplementedError) and lower_only.
 
 from __future__ import annotations
 
@@ -264,50 +266,96 @@ def make_n1_ensemble(spec: homo.HomoSpec, rtol: float = 1e-7,
 
 class N2Ensemble(NamedTuple):
     spec: homo.HomoSpec
-    params: dict          # float32 parameters, swept leaves batched
+    params: dict          # the RHS's parameters, swept leaves batched
     axes: dict            # vmap in_dims of params
-    d: dict               # (B, ...) float32 feed state
-    y0: torch.Tensor      # (B, n) float32 initial states
-    ts: torch.Tensor      # (tNo+1,) float32 output grid
-    leaves1: torch.Tensor  # the fused RHS's packed leaves
+    d: dict               # (B, ...) feed state, params' dtype
+    y0: torch.Tensor      # (B, n) initial states, the integrator's dtype
+    ts: torch.Tensor      # (tNo+1,) output grid, the integrator's dtype
+    leaves1: torch.Tensor  # the fused RHS's packed float32 leaves
     leaves2: torch.Tensor
     ko_keys: tuple
 
 
 def prepare_n2_ensemble(model_input: Mapping[str, Any],
-                        sweep: Mapping[str, Any], device=None) -> N2Ensemble:
-    """The float32 inputs of an N2 lockstep ensemble on ``device``
-    (default: the CUDA card; without one, a call that names no device
-    raises instead of running on the CPU, see config.resolve_device).
+                        sweep: Mapping[str, Any], device=None,
+                        dtype=_f32, rhs_dtype=None) -> N2Ensemble:
+    """The inputs of an N2 lockstep ensemble on ``device`` (default: the
+    CUDA card; without one, a call that names no device raises instead of
+    running on the CPU, see config.resolve_device): states and output
+    grid in ``dtype`` (float32 by default), parameters and feed state in
+    ``rhs_dtype`` (default dtype).
 
-    Parameters and feed state follow the reference's hybrid cast for a
-    df32 run (rmt_tpu/parallel/ensemble.py, hybrid_cast): parameters are
-    rounded to float32 and the feed state is derived from them (here in
-    float64, then rounded), so the integrated problem is the one the JAX
-    package integrates.
+    A float32 RHS follows the reference's hybrid cast
+    (rmt_tpu/parallel/ensemble.py, hybrid_cast): parameters are rounded to
+    float32 and the feed state is derived from them (here in float64,
+    then rounded), so the integrated problem is the one the JAX package
+    integrates. A float64 RHS keeps the float64 parameters and derives
+    its feed state from them (accurate_rates="full", dtype=float64).
     """
     if "opT" in sweep:
         raise ValueError("the lockstep integrator requires a shared period")
     if not sweep:
         raise ValueError("the sweep must name at least one batched leaf")
+    rhs_dtype = rhs_dtype or dtype
     device = config.resolve_device(device)
     spec = homo.build_spec(model_input)
     base = homo.build_params(model_input, dtype=_f64, device=device)
     params, axes = batch_params(base, sweep)
-    p32 = _cast(params, _f32)
+    p_rhs = _cast(params, rhs_dtype)
 
     def derive(q):
         d = homo.feed_state(spec, q)
         return d, homo.n2_initial_state(spec, q, d)
 
-    dB, y0B = vmap(derive, in_dims=(axes,))(_cast(p32, _f64))
-    dB, y0B = _cast(dB, _f32), y0B.to(_f32)
-    ts = (p32["opT"].to(_f64) * torch.linspace(
-        0.0, 1.0, spec.t_no + 1, dtype=_f64, device=device)).to(_f32)
-    ko_keys = tuple(sorted(p32["kinetic_overrides"]))
+    dB, y0B = vmap(derive, in_dims=(axes,))(_cast(p_rhs, _f64))
+    dB, y0B = _cast(dB, rhs_dtype), y0B.to(dtype)
+    ts = (p_rhs["opT"].to(_f64) * torch.linspace(
+        0.0, 1.0, spec.t_no + 1, dtype=_f64, device=device)).to(dtype)
+    ko_keys = tuple(sorted(p_rhs["kinetic_overrides"]))
     leaves1, leaves2 = cuda_rhs.pack_leaves(
-        _broadcast(p32, axes, y0B.shape[0]), dB, ko_keys)
-    return N2Ensemble(spec, p32, axes, dB, y0B, ts, leaves1, leaves2, ko_keys)
+        _broadcast(p_rhs, axes, y0B.shape[0]), dB, ko_keys)
+    return N2Ensemble(spec, p_rhs, axes, dB, y0B, ts, leaves1, leaves2,
+                      ko_keys)
+
+
+def _check_lockstep_options(accurate_rates, cheap_sweeps, exact_solve,
+                            colored_jacobian, batched_rhs, fused_rhs, dtype):
+    """rmt_tpu's argument checks of run_n2_ensemble_lockstep, with its
+    error types and messages (no x64 check: float64 is native here), and
+    the port's dtype checks."""
+    if accurate_rates not in (False, True, "full", "df32"):
+        raise ValueError(f"unknown accurate_rates {accurate_rates!r}: "
+                         "False, True, 'full' or 'df32'")
+    if cheap_sweeps:
+        if not accurate_rates:
+            raise ValueError(
+                "cheap_sweeps only makes sense with an accurate_rates mode "
+                "(the plain RHS IS the cheap one otherwise)")
+        if batched_rhs:
+            raise ValueError("cheap_sweeps + batched_rhs not supported")
+    if exact_solve and not colored_jacobian:
+        raise ValueError("exact_solve requires colored_jacobian=True")
+    if batched_rhs and accurate_rates not in (False, "df32"):
+        raise ValueError(
+            "batched_rhs supports plain f32 or accurate_rates='df32' only "
+            "(the x64-hybrid legs keep the vmapped path)")
+    if fused_rhs:
+        if accurate_rates not in (False, "df32"):
+            raise ValueError(
+                "fused_rhs supports plain f32 or accurate_rates='df32' only "
+                "(the x64-hybrid legs keep the vmapped path)")
+        if batched_rhs:
+            raise ValueError("fused_rhs and batched_rhs are exclusive")
+    if dtype not in (_f32, _f64):
+        raise ValueError(f"dtype {dtype} is neither float32 nor float64")
+    if dtype == _f64:
+        if accurate_rates:
+            raise ValueError(
+                "the accurate_rates modes integrate float32 states; "
+                "dtype=float64 takes accurate_rates=False")
+        if fused_rhs:
+            raise ValueError("the fused RHS kernel is float32 only; "
+                             "dtype=float64 takes fused_rhs=False or None")
 
 
 def run_n2_ensemble_lockstep(
@@ -315,31 +363,64 @@ def run_n2_ensemble_lockstep(
     sweep: Mapping[str, Any],
     rtol: float = 1e-7,
     atol: float = 1e-10,
+    mesh=None,
+    colored_jacobian: bool = True,
+    microbatch: int | None = None,
     exact_solve: bool = False,
     accurate_rates: bool | str = False,
+    batched_rhs: bool | None = None,
     cheap_sweeps: int = 0,
-    microbatch: int | None = None,
+    fused_rhs: bool | None = None,
+    dtype=_f32,
     device=None,
     **solver_kwargs,
 ):
-    """N2 dynamic ensemble on the lockstep Radau integrator, in float32.
+    """N2 dynamic ensemble on the lockstep Radau integrator
+    (rmt_tpu's run_n2_ensemble_lockstep), float32 states by default.
 
     exact_solve=False (the default) solves the Radau stage systems with
-    float32 Newton-Schulz preconditioners built from the dense colored
-    Jacobian (ns_refresh / ns_step pass through to the integrator);
+    float32 Newton-Schulz preconditioners (ns_refresh / ns_step pass
+    through to the integrator) from the dense Jacobian: colored JVPs of
+    the RHS with the pressure march frozen (colored_jacobian=True), or
+    one JVP a state entry of the whole RHS (colored_jacobian=False).
     exact_solve=True solves them exactly through the block-bidiagonal
-    structure of the MoL Jacobian.
+    structure of the MoL Jacobian (its blocks from the colored JVPs;
+    requires colored_jacobian=True).
 
-    accurate_rates="df32" evaluates the kinetics chain, nu@R and the
-    heat-of-reaction sum in compensated double-float32 pairs
-    (ops/df32.py); False evaluates the whole RHS in plain float32.
+    accurate_rates: False evaluates the RHS in plain float32; "df32" the
+    kinetics chain, nu@R and the heat-of-reaction sum in compensated
+    double-float32 pairs (ops/df32.py); True the kinetics chain, nu@R and
+    the heat of reaction in float64 inside a float32 evaluation (float32
+    parameters); "full" the whole RHS and its Jacobian in float64 on
+    float64 parameters and feed state (the state is cast up on entry and
+    the results back to float32). The integrator's states, stages, step
+    control and stage solves stay float32 in every mode.
 
-    cheap_sweeps=k (df32 only): the first k Newton sweeps of every
-    attempt use the plain float32 RHS, the rest the df32 one.
+    fused_rhs: the residual RHS calls through the generated fused kernel
+    (ops/cuda_rhs.py; its plain twin on the CPU). None (the default):
+    wherever the mode allows it (plain float32 or "df32", not
+    batched_rhs, float32 states); True demands it; False evaluates the
+    per-member make_n2_rhs under torch.func.vmap. batched_rhs=True
+    evaluates the RHS and its colored Jacobian through
+    homo.make_n2_rhs_b, the member-last RHS (plain or "df32"; default
+    None: off, as in rmt_tpu). The Jacobian never goes through the
+    kernel: it differentiates the PyTorch RHS.
 
-    The inputs are made by prepare_n2_ensemble (the hybrid cast) on
-    ``device``: the CUDA card unless the caller names another (pass
-    device="cpu" for the CPU; with no card and no device= it raises).
+    cheap_sweeps=k (an accurate_rates mode): the first k Newton sweeps of
+    every attempt use the plain float32 RHS (the fused kernel unless
+    fused_rhs=False; for "full" the float64 RHS, as rmt_tpu's promotion
+    lifts it), the rest the accurate one.
+
+    dtype=torch.float64 integrates float64 states (accurate_rates False,
+    the fused kernel off): the RHS and its Jacobian in float64, the
+    preconditioner algebra and the block solves in float32 (rmt_tpu
+    picks float64 by its process's x64 switch; the port takes it per
+    call).
+
+    The inputs are made by prepare_n2_ensemble on ``device``: the CUDA
+    card unless the caller names another (pass device="cpu" for the
+    CPU; with no card and no device= it raises). mesh= raises:
+    the port has no mesh sharding yet.
 
     microbatch=K (K < B, B a multiple of K): the sweep's members are
     integrated K at a time, one call of the single-batch path for each
@@ -354,13 +435,9 @@ def run_n2_ensemble_lockstep(
     stiff_ensemble.odeint_ensemble) the return is (ys_sel, y_final,
     stats).
     """
-    if accurate_rates not in (False, "df32"):
-        raise NotImplementedError(
-            "the port supports accurate_rates False or 'df32'")
-    if cheap_sweeps and not accurate_rates:
-        raise ValueError(
-            "cheap_sweeps only makes sense with an accurate_rates mode "
-            "(the plain RHS IS the cheap one otherwise)")
+    _no_mesh(mesh)
+    _check_lockstep_options(accurate_rates, cheap_sweeps, exact_solve,
+                            colored_jacobian, batched_rhs, fused_rhs, dtype)
     if microbatch is not None:
         b_total = len(next(iter(sweep.values()))) if sweep else 0
         if b_total > microbatch:
@@ -368,55 +445,139 @@ def run_n2_ensemble_lockstep(
                 model_input, sweep, b_total, int(microbatch),
                 dict(rtol=rtol, atol=atol, exact_solve=exact_solve,
                      accurate_rates=accurate_rates,
-                     cheap_sweeps=cheap_sweeps, device=device,
-                     **solver_kwargs))
+                     cheap_sweeps=cheap_sweeps,
+                     colored_jacobian=colored_jacobian,
+                     batched_rhs=batched_rhs, fused_rhs=fused_rhs,
+                     dtype=dtype, device=device, **solver_kwargs))
+    full = accurate_rates == "full"
     df32_mode = accurate_rates == "df32"
-    e = prepare_n2_ensemble(model_input, sweep, device)
-    spec, p32, axes, dB, y0B = e.spec, e.params, e.axes, e.d, e.y0
-    leaves1, leaves2, ko_keys = e.leaves1, e.leaves2, e.ko_keys
+    use_batched = bool(batched_rhs)
+    use_fused = (bool(fused_rhs) if fused_rhs is not None else
+                 accurate_rates in (False, "df32") and not use_batched
+                 and dtype == _f32)
+    e = prepare_n2_ensemble(model_input, sweep, device, dtype=dtype,
+                            rhs_dtype=_f64 if full else dtype)
+    spec, p, axes, dB, y0B = e.spec, e.params, e.axes, e.d, e.y0
     Bsz, n_state = y0B.shape
 
-    # Jacobian: colored JVPs of the plain float32 RHS with the pressure
-    # march frozen, mapped over members; the blocks alone for the exact
-    # solve, the dense matrix for the Newton-Schulz preconditioners
-    make_jac = (homo.make_n2_bidiag_blocks if exact_solve
-                else homo.make_n2_colored_jacobian)
-    jacB = vmap(make_jac(spec), in_dims=(0, 0, axes, 0))
+    rhs_m, jac_m, jbl = n2_mode_functions(spec, accurate_rates)
+    if use_batched:
+        pB = _broadcast(p, axes, Bsz)
+        rhs_b = homo.make_n2_rhs_b(spec, accurate_rates=accurate_rates)
+        jac_b = homo.make_n2_colored_jacobian_b(spec)
+        p3 = {k: (v.repeat_interleave(3, dim=0) if not isinstance(
+            v, Mapping) else {kk: vv.repeat_interleave(3, dim=0)
+                              for kk, vv in v.items()})
+              for k, v in pB.items()}
+        d3 = {k: v.repeat_interleave(3, dim=0) for k, v in dB.items()}
 
-    def jac(t, y):
-        return jacB(t, y, p32, dB)
+        def f_torch(t, y):
+            return rhs_b(t, y, pB, dB)
 
-    # residuals: the fused RHS over member rows (stage-stacked for stages)
-    rhs = cuda_rhs.build_n2_fused(
-        spec, accurate_rates="df32" if df32_mode else False, ko_keys=ko_keys)
+        def stages_torch(ts_st, Y):
+            return rhs_b(ts_st.reshape(-1), Y.reshape(-1, n_state), p3,
+                         d3).reshape(Y.shape)
 
-    def batched(rhs_fn):
-        return lambda t, y: rhs_fn(y, leaves1, leaves2)
+        jac_colored = lambda t, y: jac_b(t, y, pB, dB)
+    else:
+        fB = vmap(rhs_m, in_dims=(0, 0, axes, 0))
+        p3 = _repeat(p, axes, 3)
+        d3 = {k: v.repeat_interleave(3, dim=0) for k, v in dB.items()}
 
-    def stages(rhs_fn):
-        # one evaluation over the 3B stage-stacked batch, stage-major
-        # (member = row % B)
-        def f_stages(ts_st, Y):
-            yf = Y.transpose(0, 1).reshape(3 * Bsz, n_state)
-            out = rhs_fn(yf, leaves1, leaves2)
-            return out.reshape(3, Bsz, n_state).transpose(0, 1)
+        def f_torch(t, y):
+            return fB(t, y, p, dB)
 
-        return f_stages
+        def stages_torch(ts_st, Y):
+            # the three stages of every member as one batch of 3B rows
+            # (row 3b + i is stage i of member b)
+            return fB(ts_st.reshape(-1), Y.reshape(-1, n_state), p3,
+                      d3).reshape(Y.shape)
+
+        jcB = vmap(jac_m, in_dims=(0, 0, axes, 0))
+        jac_colored = lambda t, y: jcB(t, y, p, dB)
 
     kw = dict(solver_kwargs)
-    kw["f_stages"] = stages(rhs)
-    if df32_mode and cheap_sweeps:
-        rhs_cheap = cuda_rhs.build_n2_fused(spec, ko_keys=ko_keys)
-        kw["f_cheap"] = batched(rhs_cheap)
-        kw["f_cheap_stages"] = stages(rhs_cheap)
-        kw["cheap_sweeps"] = int(cheap_sweeps)
-    if exact_solve:
-        kw.setdefault("block", (spec.var_no_n2, spec.z_no))
-        kw["jac_blocks"] = jac
+    if use_fused:
+        # residuals: the fused RHS over member rows (stage-stacked for
+        # stages)
+        rhs = cuda_rhs.build_n2_fused(
+            spec, accurate_rates="df32" if df32_mode else False,
+            ko_keys=e.ko_keys)
+        f, kw["f_stages"] = _fused_calls(rhs, e)
     else:
-        kw["jac"] = jac
+        f, kw["f_stages"] = f_torch, stages_torch
+    if cheap_sweeps:
+        if full:
+            kw["f_cheap"], kw["f_cheap_stages"] = f_torch, stages_torch
+        elif fused_rhs is False:
+            fcB = vmap(homo.make_n2_rhs(spec), in_dims=(0, 0, axes, 0))
+            kw["f_cheap"] = lambda t, y: fcB(t, y, p, dB)
+            kw["f_cheap_stages"] = lambda ts_st, Y: fcB(
+                ts_st.reshape(-1), Y.reshape(-1, n_state), p3,
+                d3).reshape(Y.shape)
+        else:
+            kw["f_cheap"], kw["f_cheap_stages"] = _fused_calls(
+                cuda_rhs.build_n2_fused(spec, ko_keys=e.ko_keys), e)
+        kw["cheap_sweeps"] = int(cheap_sweeps)
+
+    # Jacobian: colored JVPs of the PyTorch RHS with the pressure march
+    # frozen (the blocks alone for the exact solve), or the dense
+    # Jacobian of the whole RHS by one JVP a state entry
+    if exact_solve:
+        jblB = vmap(jbl, in_dims=(0, 0, axes, 0))
+        kw.setdefault("block", (spec.var_no_n2, spec.z_no))
+        kw["jac_blocks"] = lambda t, y: jblB(t, y, p, dB)
+    elif colored_jacobian:
+        kw["jac"] = jac_colored
+    else:
+        kw["jac"] = lambda t, y: stiff_ensemble.batched_jacobian(f_torch, t,
+                                                                 y)
     return stiff_ensemble.odeint_ensemble(
-        batched(rhs), y0B, e.ts, rtol=rtol, atol=atol, **kw)
+        f, y0B, e.ts, rtol=rtol, atol=atol, batched=True, **kw)
+
+
+def n2_mode_functions(spec, accurate_rates=False):
+    """(rhs, jac, blocks) of a lockstep mode as PyTorch functions of one
+    member, each f(t, y (n,), p, d): the RHS (homo.make_n2_rhs), its
+    dense colored Jacobian and its bidiagonal blocks with the pressure
+    march frozen (make_n2_colored_jacobian, make_n2_bidiag_blocks; plain
+    in every mode, as in rmt_tpu). Under "full" all three evaluate in
+    float64 on float64 parameters: the state is cast up on entry and the
+    RHS and the dense Jacobian cast back to float32 (the integrator casts
+    the blocks). rmt_tpu gets its float64 RHS by promotion from the
+    float64 parameters, but under torch.func.vmap a member's parameter
+    is a 0-dim tensor, which does not promote a float32 state."""
+    rhs = homo.make_n2_rhs(spec, accurate_rates=(
+        accurate_rates if accurate_rates != "full" else False))
+    jac = homo.make_n2_colored_jacobian(spec)
+    blocks = homo.make_n2_bidiag_blocks(spec)
+    if accurate_rates != "full":
+        return rhs, jac, blocks
+
+    def up(fn, down):
+        def f(t, y, p, d):
+            out = fn(t, y.to(_f64), p, d)
+            return out.to(_f32) if down else out
+        return f
+
+    return up(rhs, True), up(jac, True), up(blocks, False)
+
+
+def _fused_calls(rhs_fn, e):
+    """(f, f_stages) of a fused RHS function on the ensemble's leaves: f
+    over the B member rows, f_stages one evaluation over the 3B
+    stage-stacked rows, stage-major (member = row % B)."""
+    Bsz, n_state = e.y0.shape
+
+    def f(t, y):
+        return rhs_fn(y, e.leaves1, e.leaves2)
+
+    def f_stages(ts_st, Y):
+        yf = Y.transpose(0, 1).reshape(3 * Bsz, n_state)
+        out = rhs_fn(yf, e.leaves1, e.leaves2)
+        return out.reshape(3, Bsz, n_state).transpose(0, 1)
+
+    return f, f_stages
 
 
 def _run_microbatches(model_input, sweep, b_total, k, kw):
@@ -818,7 +979,8 @@ def _run_m13_sweep_lockstep(model_input, sweep, z_no, rtol, atol, device,
         ys, stats = stiff_ensemble.odeint_ensemble(
             fB, y_gas, ts_grid[k:k + 2], rtol=rtol, atol=atol, jac=jac_gas,
             block=(n_layer, z_no, "tridiag"), max_steps=max_steps_gas,
-            f_stages=lambda t_st, Y: gas_st(t_st, Y, d, cs_surf, ts_surf))
+            f_stages=lambda t_st, Y: gas_st(t_st, Y, d, cs_surf, ts_surf),
+            batched=True)
         y_gas = ys[-1]
         unreached = (stats.seg < 1).to(torch.int32)
         clock = lap(clock, "gas")

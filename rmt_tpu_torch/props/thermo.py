@@ -1,5 +1,5 @@
 # Thermodynamic property functions on tensors (port of
-# rmt_tpu/props/thermo.py, the parts the N1, N2 and M0-M9 models read).
+# rmt_tpu/props/thermo.py).
 #
 # Coefficient tables are numpy float64 (data/species.py); each function
 # casts them to the dtype and device of its temperature argument, so an
@@ -39,9 +39,20 @@ def cp_mix(mole_frac, cp_i):
     return torch.sum(mole_frac * cp_i, dim=-1)
 
 
+def enthalpy_change(T2, idx: np.ndarray, T1=Tref):
+    """Enthalpy change Cp_mean*(T2-T1) [kJ/kmol] per species."""
+    T2 = torch.as_tensor(T2)
+    return cp_mean(T2, idx, T1) * (T2[..., None] - T1)
+
+
 def volumetric_flowrate_ig(P, T, molar_flows):
     """Total volumetric flowrate of an ideal gas [m^3/s]."""
     return (R_CONST * T / P) * torch.sum(molar_flows, dim=-1)
+
+
+def concentration_ig(molar_flows, vol_flow):
+    """Species concentration [mol/m^3] from molar flow / volumetric flow."""
+    return molar_flows / vol_flow
 
 
 def density_ig(mw_mix, conc_total):
@@ -60,3 +71,8 @@ def mixture_molecular_weight(mole_frac, mw, unit: str = "g/mol"):
     if unit == "kg/mol":
         return m * 1e-3
     return m
+
+
+def mole_fraction_from_concentration(conc):
+    """Mole fractions from species concentrations (last axis)."""
+    return conc / torch.sum(conc, dim=-1, keepdim=True)

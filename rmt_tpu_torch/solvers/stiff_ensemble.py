@@ -46,11 +46,12 @@
 # member finished) and, in Newton-Schulz mode, the cold-rescue test of
 # the refresh travel in the same transfer.
 #
-# Left for later ports: the theta-keyed growth cap, the Newton-failure
-# barrier, a per-member f (the reference's batched=False; here f is
-# always batched) and the reference's tuning
-# arguments (rhs_noise, max_factor, predict_stages), here fixed at the
-# reference's defaults.
+# The reference's tuning arguments are all here (rhs_noise, max_factor,
+# predict_stages, theta_target, newton_h_barrier), with its off-TPU
+# defaults, and f is either batched (batched=True) or one member's RHS
+# mapped with torch.func.vmap (batched=False, the default, as in
+# rmt_tpu). Left out: use_pallas. On the card the kernels are the route,
+# and a switch to their plain twins there would be a fallback.
 
 from __future__ import annotations
 
@@ -154,10 +155,21 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
                     ns_refresh: int = 5, ns_step: int = 1, f_cheap=None,
                     cheap_sweeps: int = 0, f_stages=None,
                     f_cheap_stages=None, out_members=None,
-                    dense_output: bool = False):
-    """Integrate a stiff ensemble dy/dt = f(t, y) for every member.
+                    dense_output: bool = False, batched: bool = False,
+                    args=None, rhs_noise: float | None = None,
+                    max_factor: float | None = None,
+                    predict_stages: bool = True,
+                    theta_target: float | None = None,
+                    newton_h_barrier: bool = False):
+    """Integrate a stiff ensemble dy/dt = f(t, y, *args) for every member.
 
-    f is batched: f(t (B,), y (B, n)) -> (B, n).
+    batched=True: f(t (B,), y (B, n)) -> (B, n) (and jac, f_cheap, if
+    given) already take the whole batch. batched=False (the default, as
+    in rmt_tpu): f is one member's RHS, f(t (), y (n,)) -> (n,), mapped
+    over members with torch.func.vmap; its default Jacobian maps
+    torch.func.jacfwd over members, and a given jac(t, y) -> (n, n) is
+    mapped the same way. args (a tuple) is passed to f and f_cheap after
+    y; f_stages, f_cheap_stages, jac and jac_blocks take none.
 
     Newton-Schulz mode (block=None): jac(t, y) -> (B, n, n) is the
     batched dense Jacobian (default: forward-mode JVPs of f,
@@ -186,6 +198,18 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     clamped onto it. Worth it where the output grid is fine next to the
     natural steps (N1's 101 points).
 
+    Tuning (rmt_tpu's arguments, its off-TPU defaults): rhs_noise, the
+    relative evaluation noise of f that floors the Newton test (None:
+    2e-6 for float32 states, 1e-14 for float64); max_factor, the step
+    growth cap (None: 3.0 in block mode with float64 states, else 1.4);
+    predict_stages=False starts Newton from f(y) on every stage instead
+    of the previous step's collocation polynomial; theta_target caps the
+    growth of an accepted step at theta_target / theta, theta the
+    measured contraction rate of its simplified Newton iteration
+    (Radau5's FACCON); newton_h_barrier=True caps regrowth below 0.8
+    times the step of a member's last Newton failure, until the next
+    Jacobian refresh lifts the cap.
+
     Returns (ys, stats) with ys (n_out, B, n), ys[0] == y0. With
     out_members (host int indices (P,)) only those members' trajectories
     are recorded and the return is (ys_sel (n_out, P, n), y_final (B, n),
@@ -193,6 +217,19 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     """
     Bsz, n = y0.shape
     dtype, dev = y0.dtype, y0.device
+    if args is not None:
+        f_user, fc_user = f, f_cheap
+        f = lambda t, y: f_user(t, y, *args)
+        if fc_user is not None:
+            f_cheap = lambda t, y: fc_user(t, y, *args)
+    if not batched:
+        if jac is None and jac_blocks is None:
+            jac = torch.func.vmap(torch.func.jacfwd(f, argnums=1))
+        elif jac is not None:
+            jac = torch.func.vmap(jac)
+        f = torch.func.vmap(f)
+        if f_cheap is not None:
+            f_cheap = torch.func.vmap(f_cheap)
     tridiag = block is not None and len(block) > 2 and block[2] == "tridiag"
     if block is not None:
         var_no, z_no = block[0], block[1]
@@ -211,11 +248,16 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     else:
         out_idx, n_rec = None, Bsz
     # relative evaluation noise of f: the floor of the Newton test
-    rhs_noise = 2e-6 if dtype == _f32 else 1e-14
+    if rhs_noise is None:
+        rhs_noise = 2e-6 if dtype == _f32 else 1e-14
     # the Newton-Schulz warm start needs small h drift, and so does f32
     # block mode: the exact solve still carries eps32-level noise and
     # aggressive growth feeds Newton failures
-    max_fac = 3.0 if (block is not None and dtype != _f32) else _MAX_FACTOR
+    if max_factor is not None:
+        max_fac = float(max_factor)
+    else:
+        max_fac = 3.0 if (block is not None and dtype != _f32) else \
+            _MAX_FACTOR
     eps_dt = torch.finfo(dtype).eps
 
     c_np, A_np, b_np, bhat_np, w_np, T_np, Tinv_np = _transformed_tableau()
@@ -368,7 +410,10 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
 
     def newton_sweeps(k, fB, fS, carry, t, y, h_eff, scale3, state_floor,
                       solve_stages):
-        K, done, rn = carry
+        """k masked simplified-Newton sweeps; carry (K, done, rn, dn,
+        theta): dn the last increment of a member still iterating and
+        theta its contraction rate (only kept with theta_target)."""
+        K, done, rn, dn, theta = carry
         hcol = h_eff[:, None]
         for _ in range(k):
             Y = y[:, None, :] + h_eff[:, None, None] * torch.einsum(
@@ -385,9 +430,18 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
             floor = rhs_noise * _norm_b(hcol * K.reshape(Bsz, -1), scale3)
             tol_eff = torch.clamp(3.0 * floor + state_floor, min=_NEWTON_TOL)
             rn = torch.where(done, rn, rn_new)
-            done = done | (dn_new < tol_eff)
+            done_new = done | (dn_new < tol_eff)
+            if theta_target is not None:
+                # only ratios of pre-convergence increments count: the
+                # converging sweep's increment sits at the tolerance or
+                # noise plateau
+                ratio = dn_new / torch.clamp(dn, min=1e-300)
+                theta = torch.where(done | done_new | ~torch.isfinite(dn),
+                                    theta, ratio)
+                dn = torch.where(done, dn, dn_new)
+            done = done_new
             K = K_new
-        return K, done, rn
+        return K, done, rn, dn, theta
 
     def dense_record(out, seg, t, t_new, h_eff, y, K, accept):
         """Interpolated states at the boundaries this step crossed, and
@@ -449,20 +503,25 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
 
         f0 = fval
         K = f0[:, None, :].expand(Bsz, 3, n)
-        K = torch.where(s["pv"][:, None, None],
-                        predict_K(s["Kp"], s["hp"], h_eff, f0), K)
+        if predict_stages:
+            K = torch.where(s["pv"][:, None, None],
+                            predict_K(s["Kp"], s["hp"], h_eff, f0), K)
         not_done = torch.zeros(Bsz, dtype=torch.bool, device=dev)
-        carry = (K, not_done,
-                 torch.full((Bsz,), float("inf"), dtype=dtype, device=dev))
+        inf_b = torch.full((Bsz,), float("inf"), dtype=dtype, device=dev)
+        theta0 = (torch.zeros_like(inf_b) if theta_target is not None
+                  else inf_b)
+        carry = (K, not_done, inf_b, inf_b, theta0)
         sweep_args = (t, y, h_eff, scale3, state_floor, solve_stages)
         if cheap_n > 0:
             # cheap sweeps first, then reset done so every member is
-            # judged on accurate increments
-            Kc, _, rnc = newton_sweeps(cheap_n, f_cheap, f_cheap_stages,
-                                       carry, *sweep_args)
-            carry = (Kc, not_done, rnc)
-        K, conv, res_n = newton_sweeps(newton_iters - cheap_n, f, f_stages,
-                                       carry, *sweep_args)
+            # judged on accurate increments; dn too, so no cheap-against-
+            # accurate ratio enters theta
+            Kc, _, rnc, _, thc = newton_sweeps(cheap_n, f_cheap,
+                                               f_cheap_stages, carry,
+                                               *sweep_args)
+            carry = (Kc, not_done, rnc, inf_b, thc)
+        K, conv, res_n, _, theta_n = newton_sweeps(
+            newton_iters - cheap_n, f, f_stages, carry, *sweep_args)
         newton_done = conv
         conv = conv & torch.isfinite(res_n)
         if certified is not None:
@@ -483,11 +542,27 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
         err_c = torch.clamp(err_norm, 1e-10, 1e10)
         factor = torch.clamp(_SAFETY * err_c ** _ORDER_EXP, _MIN_FACTOR,
                              max_fac)
+        if theta_target is not None:
+            # Newton-rate-keyed growth cap (growth only; members with no
+            # rate measured get none)
+            fac_con = torch.where(
+                theta_n > 1e-8,
+                theta_target / torch.clamp(theta_n, min=1e-8),
+                torch.full_like(theta_n, float("inf")))
+            factor = torch.minimum(factor,
+                                   torch.clamp(fac_con, 1.0, max_fac))
         factor = torch.where(accept, factor, torch.clamp(factor, max=1.0))
         factor = torch.where(conv, factor, torch.full_like(factor, 0.5))
         clamped = h_eff < h
         h_new = torch.where(accept & clamped,
                             torch.maximum(h, h_eff * factor), h_eff * factor)
+        hbar = s["hbar"]
+        if newton_h_barrier:
+            # remember the failed step size; regrowth stays below it until
+            # the next Jacobian refresh
+            hbar = torch.where(active & ~conv,
+                               torch.minimum(hbar, 0.8 * h_eff), hbar)
+            h_new = torch.minimum(h_new, hbar)
         h_new = torch.where(active, h_new, h)
 
         t_new = torch.where(accept, t + h_eff, t)
@@ -535,7 +610,7 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
         )
         return dict(
             t=t_new, y=y_new, yc=yc_new, f=f_new, h=h_new, seg=seg_new,
-            out=out, stats=st, J=s["J"], P=P,
+            out=out, stats=st, J=s["J"], P=P, hbar=hbar,
             # predictor state: the last ACCEPTED step's stages and size
             Kp=torch.where(accept[:, None, None], K, s["Kp"]),
             hp=torch.where(accept, h_eff, s["hp"]),
@@ -577,7 +652,7 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
         Kp=f0[:, None, :].expand(Bsz, 3, n),
         hp=torch.ones(Bsz, dtype=dtype, device=dev),
         pv=torch.zeros(Bsz, dtype=torch.bool, device=dev),
-        J=J0, P=P0,
+        J=J0, P=P0, hbar=None,
     )
 
     def alive(s):
@@ -616,6 +691,10 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
 
     n_chunks = max(max_steps // j_every, 1)
     for _ in range(n_chunks):
+        # a fresh Jacobian lifts the Newton-failure barrier
+        if newton_h_barrier:
+            s["hbar"] = torch.full((Bsz,), float("inf"), dtype=dtype,
+                                   device=dev)
         # early exit once every member has written its last segment
         st = s["stats"]
         if block is not None:

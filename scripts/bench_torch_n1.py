@@ -107,7 +107,7 @@ def run(mi, t_offsets, device=None, dtype=None, rtol=RTOL, atol=ATOL,
     f, f_stages, y0, ts = build(mi, t_offsets, device, dtype)
     return stiff_ensemble.odeint_ensemble(
         f, y0, ts, rtol=rtol, atol=atol, f_stages=f_stages,
-        dense_output=dense_output, **dict(OPTS, **overrides))
+        dense_output=dense_output, **dict(OPTS, **overrides), batched=True)
 
 
 def scipy_reference(mi, t_offsets, rtol=1e-10, atol=1e-13):

@@ -2,10 +2,12 @@
 """The port's N2 DME ensemble benchmark on one CUDA card: the PyTorch twin
 of bench.py (which stays the JAX package's benchmark).
 
-    python3 scripts/bench_torch_n2.py [--microbatch K]
+    python3 scripts/bench_torch_n2.py [--microbatch K] [--legs NAME ...]
+                                      [--b-f32x B]
 
 Runs bench.py's legs (bench.py:80-101) through
-rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, in this order:
+rmt_tpu_torch.parallel.run_n2_ensemble_lockstep; by default these three,
+in this order:
   f32x  the qualifying leg: df32 kinetics, exact block-bidiagonal stage
         solves, cheap_sweeps 2, j_every 8, newton_iters 5, rtol 6e-7,
         atol 1e-9, max_steps 768, at b_total 131072 members in one call,
@@ -18,9 +20,22 @@ rmt_tpu_torch.parallel.run_n2_ensemble_lockstep, in this order:
         leg as ch4_max_rel_err / ch4_mean_rel_err;
   f32   plain float32 with Newton-Schulz preconditioners, rtol 1e-5,
         atol 1e-7, j_every 8, newton_iters 5, max_steps 768, at B = 4096.
-bench.py's opt-in f64 leg is left out: the port's lockstep ensemble
-integrates in float32. bench.py's walk-down to smaller B after a crash
-is left out too: an out-of-memory error is a failure here.
+Legs that run only when named with --legs (with the default legs named
+as f32x, ch4, f32; --b-f32x sets the f32x leg's members):
+  f64     bench.py's opt-in float64 leg (bench.py:99-100): dtype float64,
+          Newton-Schulz preconditioners (float32, from the float64
+          colored Jacobian), rtol 1e-7, atol 1e-10, newton_iters 6,
+          max_steps 768, at B = 4096, with --microbatch K in slices of K
+          (bench.py's f64 chunk is 256);
+  true    the f32x options with accurate_rates=True (the kinetics chain
+          in float64 inside a float32 RHS), B = 4096;
+  full    the f32x options with accurate_rates="full" (the whole RHS and
+          its Jacobian in float64), B = 4096;
+  f32_am  the f32 leg with the DSL's accurate-f32 switch on
+          (kinetics/dsl.accurate_f32_math: the RHS kernel's accurate-math
+          variant), B = 4096.
+bench.py's walk-down to smaller B after a crash is left out: an
+out-of-memory error is a failure here.
 
 The sweep is T0 = base + linspace(-5, 5, B) with the probe offsets of
 bench_ref.npz (read only) spliced in at evenly spaced members, as
@@ -37,8 +52,8 @@ legs. vs_baseline divides by baseline_seconds 78.411, the SciPy time of
 one reference PyREMOT N2 run committed in BENCH_r05.json: it was not
 measured on this host. Exits nonzero when a leg fails: a member that
 does not finish, a state that is not finite, an error over its bar
-(f32x and CH4 1e-6, f32 5e-5, chip_smoke.py's bars) or an out-of-memory
-error. Without a CUDA card it exits nonzero.
+(f32x, CH4, f64 and true 1e-6, full 3e-6, f32 and f32_am 5e-5,
+chip_smoke.py's bars) or an out-of-memory error. Without a CUDA card it exits nonzero.
 """
 
 import argparse
@@ -52,7 +67,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import F32, F32X, header, probe_layout  # noqa: E402
+from chip_smoke import (F32, F32X, F64, FULL_BAR, header,  # noqa: E402
+                        probe_layout)
 
 REF_NPZ = os.path.join(ROOT, "bench_ref.npz")
 BASELINE_SECONDS = 78.411
@@ -61,17 +77,22 @@ BASELINE = ("committed SciPy time (BENCH_r05.json), not measured on this "
 B_F32X = 131072          # bench.py's LEGS["f32x"]["b_total"]
 B_F32 = 4096             # bench.py's B
 CH4_ACC_B = 16
-BARS = {"f32x": 1e-6, "ch4": 1e-6, "f32": 5e-5}
+BARS = {"f32x": 1e-6, "ch4": 1e-6, "f32": 5e-5, "f64": 1e-6, "true": 1e-6,
+        "full": FULL_BAR, "f32_am": 5e-5}
+DEFAULT_LEGS = ("f32x", "ch4", "f32")
 
 
 class LegFailed(Exception):
     pass
 
 
-def leg(torch, name, chem, b, opts, device, microbatch=None):
+def leg(torch, name, chem, b, opts, device, microbatch=None,
+        accurate_math=False):
     """Integrate one leg on the card twice (first call untimed) and
-    return its record; raises LegFailed when a check fails."""
+    return its record; raises LegFailed when a check fails.
+    accurate_math sets the DSL's accurate-f32 switch for the leg."""
     from rmt_tpu_torch.cases import ch4_case, dme_case
+    from rmt_tpu_torch.kinetics.dsl import accurate_f32_math
     from rmt_tpu_torch.parallel import run_n2_ensemble_lockstep
 
     case = {"dme": dme_case, "ch4": ch4_case}[chem]
@@ -84,15 +105,16 @@ def leg(torch, name, chem, b, opts, device, microbatch=None):
     def call():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if microbatch and microbatch < b:
-            ys, stats = run_n2_ensemble_lockstep(
-                mi, {"T0": t_base + sweep}, microbatch=microbatch,
-                device=device, **opts)
-            ys_sel, y_fin = ys[:, idx], ys[-1]
-        else:
-            ys_sel, y_fin, stats = run_n2_ensemble_lockstep(
-                mi, {"T0": t_base + sweep}, out_members=idx, device=device,
-                **opts)
+        with accurate_f32_math(accurate_math):
+            if microbatch and microbatch < b:
+                ys, stats = run_n2_ensemble_lockstep(
+                    mi, {"T0": t_base + sweep}, microbatch=microbatch,
+                    device=device, **opts)
+                ys_sel, y_fin = ys[:, idx], ys[-1]
+            else:
+                ys_sel, y_fin, stats = run_n2_ensemble_lockstep(
+                    mi, {"T0": t_base + sweep}, out_members=idx,
+                    device=device, **opts)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, ys_sel, y_fin, stats
 
@@ -112,8 +134,9 @@ def leg(torch, name, chem, b, opts, device, microbatch=None):
         unfinished=unfinished, seconds=t_ens, first_call_s=t_first,
         jacobian_refreshes=int(stats.n_jev) - 1,
         cold_rescues=int(stats.n_rescue), microbatch=microbatch,
-        config={k: v for k, v in opts.items()
-                if k not in ("rtol", "atol")},
+        accurate_math=accurate_math,
+        config={k: (v if isinstance(v, (bool, int, float, str)) else str(v))
+                for k, v in opts.items() if k not in ("rtol", "atol")},
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     got = ys_sel.double().cpu().numpy()
     rel = np.abs(got - ref_ys) / np.maximum(np.abs(ref_ys), 1e-7)
@@ -133,7 +156,14 @@ def leg(torch, name, chem, b, opts, device, microbatch=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--microbatch", type=int, default=None,
-                    help="integrate the f32x leg K members at a time")
+                    help="integrate the f32x (or f64) leg K members at a "
+                    "time")
+    ap.add_argument("--legs", nargs="+", default=list(DEFAULT_LEGS),
+                    choices=("f32x", "ch4", "f32", "f64", "true", "full",
+                             "f32_am"),
+                    help="the legs to run, in this order")
+    ap.add_argument("--b-f32x", type=int, default=B_F32X,
+                    help="the f32x leg's members (bench.py: 131072)")
     args = ap.parse_args()
 
     import torch
@@ -145,13 +175,22 @@ def main():
 
     device = torch.device("cuda:0")
     name = header(torch)
-    plan = (("f32x", "dme", B_F32X, F32X, args.microbatch),
-            ("ch4", "ch4", CH4_ACC_B, F32X, None),
-            ("f32", "dme", B_F32, F32, None))
+    known = {
+        "f32x": ("dme", args.b_f32x, F32X, args.microbatch, False),
+        "ch4": ("ch4", CH4_ACC_B, F32X, None, False),
+        "f32": ("dme", B_F32, F32, None, False),
+        "f64": ("dme", B_F32, dict(F64, dtype=torch.float64),
+                args.microbatch, False),
+        "true": ("dme", B_F32, dict(F32X, accurate_rates=True), None, False),
+        "full": ("dme", B_F32, dict(F32X, accurate_rates="full"), None,
+                 False),
+        "f32_am": ("dme", B_F32, F32, None, True),
+    }
     legs, failed = {}, []
-    for leg_name, chem, b, opts, mb in plan:
+    for leg_name in args.legs:
+        chem, b, opts, mb, am = known[leg_name]
         try:
-            rec = leg(torch, leg_name, chem, b, opts, device, mb)
+            rec = leg(torch, leg_name, chem, b, opts, device, mb, am)
         except (LegFailed, torch.cuda.OutOfMemoryError) as e:
             traceback.print_exc()
             failed.append(f"{leg_name}: {type(e).__name__}: {e}")

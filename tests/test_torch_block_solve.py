@@ -67,10 +67,11 @@ def test_block_mode_from_dense_jacobian_matches_jac_blocks():
               block=(var_no, spec.z_no),
               f_stages=lambda ts3, Y: rhs(ts3, Y, p))
     f = lambda t, y: rhs(t, y, p)
-    ys_d, st_d = odeint_ensemble(f, y0, ts, jac=lambda t, y: jac_x(y), **kw)
+    ys_d, st_d = odeint_ensemble(f, y0, ts, jac=lambda t, y: jac_x(y),
+                                 batched=True, **kw)
     ys_b, st_b = odeint_ensemble(f, y0, ts,
                                  jac_blocks=lambda t, y: blocks(t, y, p),
-                                 **kw)
+                                 **kw, batched=True)
     assert bool((st_d.seg == spec.t_no).all())
     np.testing.assert_allclose(ys_d.numpy(), ys_b.numpy(), rtol=1e-10)
     for name in ("n_accepted", "n_rejected", "n_fev", "seg"):

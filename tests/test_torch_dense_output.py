@@ -34,7 +34,7 @@ def _port(dense, y0=None, lam=LAM, **kw):
     lam_t = torch.as_tensor(lam)
     y0 = torch.ones(lam.shape, dtype=torch.float64) if y0 is None else y0
     return t_se.odeint_ensemble(lambda t, y: lam_t * y, y0, TS,
-                                dense_output=dense, **KW, **kw)
+                                dense_output=dense, **KW, **kw, batched=True)
 
 
 def test_dense_output_interpolant_matches_exact_and_jax():

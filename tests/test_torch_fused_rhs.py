@@ -18,6 +18,7 @@ from rmt_tpu.models import homo as jhomo
 from rmt_tpu.ops import pallas_rhs
 from rmt_tpu.parallel import batch_params
 from rmt_tpu_torch.convert import params_from_jax
+from rmt_tpu_torch.kinetics.dsl import accurate_f32_math
 from rmt_tpu_torch.models import homo as thomo
 from rmt_tpu_torch.ops import cuda_rhs
 
@@ -312,4 +313,65 @@ def test_twin_matches_pallas_at_a_ragged_count(setup_ragged, mode, rows):
     got = cuda_rhs.build_n2_fused(tspec, accurate_rates=mode)(
         torch.as_tensor(yy), *leaves)
     assert tuple(got.shape) == ref.shape == (len(yy), 140)
+    assert _scaled_rel(got.numpy(), ref) < 5e-5
+
+
+@pytest.mark.parametrize("chem", ["dme", "ch4"])
+def test_accurate_math_kernel_source(setup, setup_ch4, monkeypatch, chem):
+    """The plain mode's accurate-math variant: its generated source
+    differs from the native one (it names the setting, so a build for one
+    setting never serves the other, and carries accurate_math's device
+    functions; the DME program calls them where it called expf, logf and
+    log10f, and expands its integer powers into products), is the same
+    text on every call, and build_n2_fused follows the DSL's switch as
+    it stands when the function is made."""
+    tspec = (setup if chem == "dme" else setup_ch4)[1]
+    native = cuda_rhs.kernel_source(tspec, accurate_math=False)
+    am = cuda_rhs.kernel_source(tspec, accurate_math=True)
+    assert am != native
+    assert am == cuda_rhs.kernel_source(tspec, accurate_math=True)
+    assert "// accurate f32 math: on" in am
+    assert "// accurate f32 math: off" in native
+    assert "am_pow(float x, float y)" in am and "am_pow(" not in native
+    if chem == "dme":
+        for fn in ("am_exp(", "am_log(", "am_log10(", "am_pow("):
+            assert am.count(fn) > 1, fn
+        body = am[am.index("void rates("):]
+        assert "expf(" not in body and "logf(" not in body
+        assert "powf(" not in body
+    monkeypatch.setenv("RMT_TORCH_ACCURATE_F32", "1")
+    rhs = cuda_rhs.build_n2_fused(tspec)
+    assert rhs.kernel_name == "n2_rhs_plain_am" and rhs.source() == am
+    ops_am = rhs.operations()
+    with accurate_f32_math(False):
+        assert cuda_rhs.build_n2_fused(tspec).kernel_name == "n2_rhs_plain"
+    monkeypatch.setenv("RMT_TORCH_ACCURATE_F32", "0")
+    # the function keeps the setting it was made with
+    assert rhs.source() == am and rhs.accurate_math
+    assert cuda_rhs.build_n2_fused(tspec).source() == native
+    ops = cuda_rhs.operation_count(tspec)
+    # CH4's program calls no transcendental
+    assert ops_am > ops if chem == "dme" else ops_am == ops
+
+
+@pytest.mark.parametrize("rows", ["B", "3B"])
+def test_accurate_math_twin_matches_pallas(setup, rows):
+    """rmt_tpu's fused Pallas kernel traces the DSL through its accurate
+    shim (RMT_TPU_ACCURATE_F32, on by default): the port's accurate-math
+    twin stays at test_twin_matches_pallas's bar of it, and runs
+    accurate_math's algorithms, not the native ops, whatever the switch
+    says. (Both twins sit about 3e-6 from the Pallas kernel: prefix-scan
+    and species-sum order and PyTorch's number / tensor outweigh the
+    libm's ulps here.)"""
+    jspec, tspec, _, _, pB32, dB32, y, leaves = setup
+    yy = y if rows == "B" else _stack3(y)
+    ref = np.asarray(pallas_rhs.build_n2_fused(
+        jspec, accurate_rates=False, interpret=True)(
+            None, jnp.asarray(yy), pB32, dB32), np.float64)
+    with accurate_f32_math(True):
+        rhs = cuda_rhs.build_n2_fused(tspec)
+    with accurate_f32_math(False):
+        native = cuda_rhs.build_n2_fused(tspec)(torch.as_tensor(yy), *leaves)
+    got = rhs(torch.as_tensor(yy), *leaves)
+    assert not torch.equal(got, native)
     assert _scaled_rel(got.numpy(), ref) < 5e-5

@@ -254,7 +254,8 @@ def test_lockstep_tridiag_block_mode_matches_jax():
     bt = torch.as_tensor(bp)[:, None]
     ys, st = t_se.odeint_ensemble(
         lambda t, y: rhs(torch, lambda xs: torch.cat(xs, dim=-1), y, bt),
-        torch.as_tensor(y0), ts, block=(var_no, z_no, "tridiag"), **kw)
+        torch.as_tensor(y0), ts, block=(var_no, z_no, "tridiag"), batched=True,
+        **kw)
     assert int(st.seg.min()) == len(ts) - 1
     f_single = lambda t, y, b: rhs(
         jnp, lambda xs: jnp.concatenate(xs, axis=-1), y, b)

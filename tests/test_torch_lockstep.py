@@ -123,7 +123,7 @@ def test_odeint_ensemble_matches_jax_block_mode():
     ys_t, st_t = t_se.odeint_ensemble(
         lambda t, y: y @ Jt.T, torch.as_tensor(y0), ts,
         jac_blocks=lambda t, y: (Jdt, Jlt), block=(m, z), rtol=1e-6,
-        atol=1e-9, max_steps=512)
+        atol=1e-9, max_steps=512, batched=True)
     assert int(torch.sum(st_t.seg < 2)) == 0
     np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=2e-5,
                                atol=1e-8)
@@ -131,18 +131,14 @@ def test_odeint_ensemble_matches_jax_block_mode():
 
 
 def test_unported_options_raise():
-    """Newton-Schulz mode (no exact_solve), microbatch and dense_output
-    are ported and no longer raise; what is still left for later ports
-    (mesh, batched_rhs) does."""
+    """Newton-Schulz mode (no exact_solve), microbatch, dense_output,
+    accurate_rates True and "full" and batched_rhs are ported and no
+    longer raise (tests/test_torch_n2_options.py holds them to rmt_tpu);
+    what is still left for later ports (mesh) does."""
     mi = t_input(model="N2", op_period=0.002)
     sweep = {"T0": T0}
     ys, st = t_run(mi, sweep, device="cpu", max_steps=8, j_every=8)
     assert tuple(ys.shape) == (6, 2, 140) and st.n_jev >= 2
-    with pytest.raises(NotImplementedError, match="accurate_rates"):
-        t_run(mi, sweep, device="cpu", accurate_rates=True)
-    with pytest.raises(NotImplementedError, match="accurate_rates"):
-        t_run(mi, sweep, device="cpu", exact_solve=True,
-              accurate_rates="full")
     with pytest.raises(ValueError, match="cheap_sweeps"):
         t_run(mi, sweep, device="cpu", cheap_sweeps=2)
     with pytest.raises(ValueError, match="cheap_sweeps"):
@@ -150,10 +146,8 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="shared period"):
         t_run(mi, {"opT": np.array([0.5, 0.6])}, device="cpu",
               exact_solve=True)
-    for later in ("mesh", "batched_rhs"):
-        with pytest.raises(TypeError, match=later):
-            t_run(mi, sweep, device="cpu", exact_solve=True,
-                  **{later: True})
+    with pytest.raises(NotImplementedError, match="mesh"):
+        t_run(mi, sweep, device="cpu", exact_solve=True, mesh=True)
     ys, st = t_run(mi, sweep, device="cpu", max_steps=8, j_every=8,
                    microbatch=1, dense_output=True)
     assert tuple(ys.shape) == (6, 2, 140) and st.n_jev >= 4

@@ -169,7 +169,7 @@ def test_n1_lockstep_float64_matches_jax():
                                               "cpu", torch.float64)
     np.testing.assert_array_equal(y0.numpy(), np.asarray(y0_j))
     ys_t, st_t = t_se.odeint_ensemble(f, y0, TS, f_stages=f_stages,
-                                      **SOLVER)
+                                      **SOLVER, batched=True)
     assert ys_t.dtype == torch.float64
     assert int(torch.sum(st_t.seg < len(TS) - 1)) == 0
     assert int(jnp.sum(st_j.seg < len(TS) - 1)) == 0
@@ -188,7 +188,8 @@ def test_n1_float32_run_matches_scipy_reference():
     offs = np.array([-5.0, 5.0])
     f, f_stages, y0, _ = bench_torch_n1.build(t_input(model="N1"), offs,
                                               "cpu", torch.float32)
-    ys, st = t_se.odeint_ensemble(f, y0, TS, f_stages=f_stages, **SOLVER)
+    ys, st = t_se.odeint_ensemble(f, y0, TS, f_stages=f_stages, batched=True,
+                                  **SOLVER)
     assert ys.dtype == torch.float32
     assert int(torch.sum(st.seg < len(TS) - 1)) == 0
 

@@ -154,7 +154,7 @@ def test_odeint_ensemble_ns_mode_matches_jax():
     ys_t, st_t = t_se.odeint_ensemble(
         lambda t, y: y @ At.T, torch.as_tensor(y0), ts,
         jac=lambda t, y: At.expand(2, 12, 12), rtol=1e-6, atol=1e-9,
-        max_steps=512)
+        max_steps=512, batched=True)
     assert cuda_ns.LAUNCHES == before        # CPU tensors run the twin
     assert ys_t.dtype == torch.float64
     assert int(torch.sum(st_t.seg < 2)) == 0
@@ -172,9 +172,9 @@ def test_ns_mode_out_members_rows_equal_full_run():
     kw = dict(jac=lambda t, y: At.expand(3, 12, 12), rtol=1e-6, atol=1e-9,
               max_steps=512)
     f = lambda t, y: y @ At.T
-    ys_full, st_full = t_se.odeint_ensemble(f, y0, ts, **kw)
+    ys_full, st_full = t_se.odeint_ensemble(f, y0, ts, **kw, batched=True)
     ys_sel, y_fin, st_sel = t_se.odeint_ensemble(
-        f, y0, ts, out_members=np.array([0, 2]), **kw)
+        f, y0, ts, out_members=np.array([0, 2]), **kw, batched=True)
     assert torch.equal(ys_sel, ys_full[:, [0, 2]])
     assert torch.equal(y_fin, ys_full[-1])
     assert torch.equal(st_sel.n_accepted, st_full.n_accepted)
@@ -196,7 +196,7 @@ def test_ns_mode_rescues_a_diverged_preconditioner():
 
     ys_t, st_t = t_se.odeint_ensemble(
         lambda t, y: y @ At.T, torch.as_tensor(y0), ts, jac=jac, rtol=1e-6,
-        atol=1e-9, max_steps=512)
+        atol=1e-9, max_steps=512, batched=True)
     assert st_t.n_rescue >= 1
     assert int(torch.sum(st_t.seg < 2)) == 0
     assert bool(torch.isfinite(ys_t).all())
@@ -213,11 +213,11 @@ def test_mode_arguments_are_checked():
     A, y0, ts = _stiff_linear()
     f = lambda t, y: y
     ys, st = t_se.odeint_ensemble(f, torch.as_tensor(y0), ts, block=(3, 4),
-                                  rtol=1e-8, atol=1e-12)
+                                  rtol=1e-8, atol=1e-12, batched=True)
     assert bool((st.seg == 2).all())
     np.testing.assert_allclose(
         ys.numpy(), y0[None] * np.exp(np.asarray(ts))[:, None, None],
         rtol=1e-6)
     with pytest.raises(ValueError, match="does not tile"):
         t_se.odeint_ensemble(f, torch.as_tensor(y0), ts, block=(5, 3),
-                             jac_blocks=lambda t, y: None)
+                             jac_blocks=lambda t, y: None, batched=True)
