@@ -13,9 +13,9 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
   1. build: nvcc builds the block kernels (csrc/block.cu), the
      Newton-Schulz kernel (csrc/ns.cu) and the fused N2 RHS kernels
      generated for the DME and the CH4 chemistry (plain, df32 and the
-     plain mode's accurate-f32-math variant each), all at once, into
-     build/, and prints each kernel's registers, spills and static shared
-     memory;
+     plain mode's accurate-f32-math variant each; and the DME RHS at the
+     grids of phases 10 and 15), all at once, into build/, and prints
+     each kernel's registers, spills and static shared memory;
   2. each kernel against its plain PyTorch twin on the card, at the main
      paths' shapes (B = 4096 members, z = 20 nodes, m = 7 variables, n =
      140; the RHS at M = B and M = 3B rows), each timed with CUDA events
@@ -69,8 +69,9 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
   7. microbatch: the f32x options at B = 512 with microbatch=256 equal,
      member by member and bit for bit, two separate calls of 256;
   8. seq, the sequential float64 path (rmt_tpu_torch.solvers.radau,
-     dopri5, fixed; scripts/bench_torch_seq.py's checks), which launches
-     none of the kernels (counts reset just before it, all 0 after it):
+     dopri5, fixed; scripts/bench_torch_seq.py's checks), in a child
+     process with phase 9, which launches none of the kernels (counts
+     reset just before it, all 0 after it):
      rmtExe N2 (DME, solver defaults) at the first probe temperature of
      bench_ref.npz, its states rebuilt from dataPack and checkpoint and
      held to that probe at 1e-6; rmtExe N1 at 518 K held to the child's
@@ -109,8 +110,8 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
  11. models, rmtExe of the packed-bed, plug-flow and batch models on the
      card (rmt_tpu_torch/cases/pb_case.py's inputs) against
      models_ref.npz (rmt_tpu, CPU float64): M0, M1, M3, M4, M7 and M8 in
-     a child process that starts before phase 8 (the sequential Radau
-     integrator is the host's work), each within 1e-6 relative; M2 at the
+     a child process (the sequential Radau integrator is the host's
+     work), each within 1e-6 relative; M2 at the
      default grid (zNo 100, tNo 10, n = 700: the lockstep integrator at
      B = 1 in block mode, its blocks from the dense colored Jacobian) in
      this process within 1e-5 relative, its attempts within 1.25 times
@@ -122,11 +123,12 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
  12. steady_het, the particle, axial-dispersion and steady heterogeneous
      models (rmt_tpu_torch/cases/hetero_case.py's inputs), which launch
      none of the kernels: rmtExe T1 (FDM, rNo 7, period 5 s), T2 by FDM,
-     OC and OCFE, T3 (zNo 10), M5 and M14 (zNo 30) in a child process that
-     starts with phase 11's (the host's work), each within 1e-6 relative
+     OC and OCFE, T3 (zNo 10), M5 and M14 (zNo 30) in a child process
+     (the host's work), each within 1e-6 relative
      of models_ref.npz (rmt_tpu, CPU float64), T1's checkpoint state too
      and its attempts within 1.25 times the reference's (the M2 bar),
-     and no kernel launched in the child; then run_m14_sweep at
+     and no kernel launched in the child; then, in the same child,
+     run_m14_sweep at
      M14_SWEEP_B members (zNo 30, n = 420, T0 = 523 + linspace(0, 20, B)
      with models_ref.npz's three inlet temperatures at members 0, B // 2
      and B - 1; wall split into the pseudo-transient continuation and the
@@ -136,26 +138,25 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      card; counts reset just before the phase, all 0 after it;
  13. dyn_het, the dynamic heterogeneous models
      (rmt_tpu_torch/cases/hetero_case.py's dyn_model_input), which launch
-     none of the kernels: rmtExe M10 (zNo 10, tNo 2, 0.02 s), M11 and M13
-     (zNo 10, rNo 7, tNo 5, 5 s: n = 560 and the split driver) and M12
-     (zNo 10, tNo 2, 4e-3 s from the physical startup state) in a child
-     process, and M13 over two chained 2.5 s runs (two intervals each)
-     against one 5 s run of four in a second, both started with phase
-     11's: every dataPack row and checkpoint within 1e-6 of
-     models_ref.npz (rmt_tpu, CPU float64) as |d| / (|ref| + 1e-3)
-     (bench_torch_seq.DYN_FLOOR says why; the floor-1e-7 error and the
-     absolute one printed beside it), M10-M12's Radau attempts within
-     1.25 times the reference's, the chained resume within 1e-6 of the
-     single run, and no kernel launched in either child; in this process
-     the M13 lockstep sweep at M13_SWEEP_B members (T0 = 523 +
-     linspace(0, 8, B), models_ref.npz's three inlet temperatures at
-     members 0, B // 2 and B - 1: every member converged, none with an
-     unreached output time, those three within rtol 2e-4, atol 1e-8 of
-     rmt_tpu's lockstep engine, the gap printed) and run_m11_sweep at
-     M11_SWEEP_B members (member 0 within 1e-6 of the child's rmtExe
-     M11), each with its wall, members/s, peak device memory (and the M13
-     sweep's rescued intervals); counts reset just before the phase, all
-     0 after it;
+     none of the kernels, in four children (DYN_CHILDREN): rmtExe M10
+     (zNo 10, tNo 2, 0.02 s), M11 and M13 (zNo 10, rNo 7, tNo 5, 5 s:
+     n = 560 and the split driver) and M12 (zNo 10, tNo 2, 4e-3 s from
+     the physical startup state), every dataPack row and checkpoint
+     within 1e-6 of models_ref.npz (rmt_tpu, CPU float64) as |d| /
+     (|ref| + 1e-3) (bench_torch_seq.DYN_FLOOR says why; the floor-1e-7
+     error and the absolute one printed beside it), M10-M12's Radau
+     attempts within 1.25 times the reference's; M13 on rmt_tpu's
+     tests/test_m13.py grid (zNo 8, rNo 5) over two chained 1.25 s runs
+     against one 2.5 s run of two intervals, within 1e-6; the M13
+     lockstep sweep at M13_SWEEP_B members (T0 = 523 + linspace(0, 8, B),
+     models_ref.npz's three inlet temperatures at members 0, B // 2 and
+     B - 1: every member converged, none with an unreached output time,
+     those three within rtol 2e-4, atol 1e-8 of rmt_tpu's lockstep
+     engine, the gap printed) and run_m11_sweep at M11_SWEEP_B members
+     (member 0 within 1e-6 of the child's rmtExe M11), each with its
+     wall, members/s, peak device memory (and the M13 sweep's rescued
+     intervals); no kernel launched in any child; counts reset just
+     before the phase, all 0 after it;
  14. n2_opts, the rest of rmt_tpu's N2 ensemble options at the 64 DME
      probe temperatures of bench_ref.npz (B = 64, zNo 20; the
      accurate-math pair at phase 4's B = 4096 with the probes spliced
@@ -171,7 +172,35 @@ Phases (any failure ends the run with a nonzero exit and no "ok" line):
      (f32x; 1e-6; block kernels), colored_jacobian=False (f32 options;
      5e-5; ns_fused_step and the plain RHS kernel) and the f32 options
      with the DSL's accurate-f32 switch on (5e-5; ns_fused_step and the
-     RHS kernel's accurate-math variant) and off, both errors printed.
+     RHS kernel's accurate-math variant) and off, both errors printed;
+ 15. mesh, rmt_tpu's dp mesh (rmt_tpu_torch/parallel/mesh.py,
+     dryrun.py), in child processes that load the kernels phase 1 built:
+     (a) phase 3's f32x sweep with mesh= over MESH_RANKS gloo ranks
+     sharing the card (twice, the second timed, its members/s printed
+     beside phase 3's): rank 0's gathered probes, final states,
+     per-member statistics and counters equal phase 3's timed run bit for
+     bit; (b) phase 4's f32 sweep over the same ranks against phase 4's
+     timed run: bit for bit with equal counters, or, where the members'
+     bits depend on the batch's size (the largest difference and its
+     member printed), bit for bit equal to separate calls on the ranks'
+     blocks with n_jev the slowest block's, the final states within 5e-5
+     of the unsharded run and the probes within 5e-5; (c)
+     dryrun_multichip (the three phases of __graft_entry__.py's
+     multichip dry run) over MESH_RANKS gloo ranks and over one NCCL
+     rank at once, their ranks started after phase 4, each estimation
+     step's loss and gradient within 1e-12 of the same step on this
+     process; every rank's kernel launches held
+     by check_launches (the dry runs' estimation and M13 phases launch
+     none), every rank's gathered results equal to rank 0's.
+
+Order: phases 0-4 run alone on the card. Then the children start: phases
+8 and 9, phase 11's steady models, phase 12, phase 13 (four children)
+and phase 15's dry runs, while this process runs
+phases 5, 6, 7, 10, 11 (M2, M9), phase 15's own runs (check (b)'s
+separate calls, the dry runs' estimation step) and 14; then it reads the
+children's results (8 and 9, 11, 12, 13) and runs phase 15's ranks'
+sweeps alone on the card. The card interleaves the processes' launches, so the walls of
+phases 5-14 are taken beside one another.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -184,6 +213,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -232,13 +262,16 @@ FULL_BAR = 3e-6
 M2_KERNELS = ("block_factor", "block_apply", "block_apply_real")
 BLOCK_KERNELS = M2_KERNELS
 # the steady_het phase: run_m14_sweep at M14_SWEEP_B members
-M14_SWEEP_B = 256
+M14_SWEEP_B = 64
 # the dyn_het phase: the M13 lockstep sweep and run_m11_sweep
-M13_SWEEP_B, M11_SWEEP_B = 256, 8
+M13_SWEEP_B, M11_SWEEP_B = 64, 8
 # the microbatch check: MICRO_B members in slices of MICROBATCH
 MICRO_B, MICROBATCH = 512, 256
 # the seq phase: explicit steppers at SEQ_B members, STEPS fixed steps
 SEQ_B, STEPS = 4096, 200
+# the mesh phase: phase 3's f32x sweep and phase 4's f32 sweep over
+# MESH_RANKS gloo ranks sharing the card
+MESH_RANKS = 2
 # the est phase: the estimation step at EST_B members, held to its B =
 # EST_REF_B run (members EST_B // (EST_REF_B - 1) apart: the same inlet
 # temperatures) and to estimation_ref.npz; Newton at SEQ_B members of
@@ -988,13 +1021,14 @@ def probe_layout(np, b, offsets):
 
 
 def sweep_phase(torch, np, mi, run, counts, dev, *, name, chem, b, opts,
-                bar, kernels):
+                bar, kernels, keep=None):
     """One leg of bench.py at b members with the reference probes of
     bench_ref.npz spliced in, probes recorded (out_members). It runs
     twice: the first run pays the process's one-time CUDA and library
     set-up; the second is the timed one, and the kernel launch counts are
     reset just before it and read just after it. Every kernel of the leg
-    must have launched in the timed run."""
+    must have launched in the timed run. keep: a dict that gets the timed
+    run's results (ys, y_fin, stats on the host) and wall."""
     with np.load(os.path.join(ROOT, "bench_ref.npz")) as z:
         offsets, ref_ys, t_base = (z[f"{chem}_offsets"], z[f"{chem}_ys"],
                                    float(z[f"{chem}_t_base"]))
@@ -1030,12 +1064,21 @@ def sweep_phase(torch, np, mi, run, counts, dev, *, name, chem, b, opts,
         check(tuple(y_fin.shape) == (b, ref_ys.shape[2]),
               f"{name}: final state shape")
         check(rel.max() <= bar, f"{name}: max_rel_err {rel.max()} > {bar:g}")
+        if keep is not None:
+            keep.update(ys=ys_sel.cpu(), y_fin=y_fin.cpu(), wall=wall,
+                        stats=host_stats(torch, stats))
         return stats
 
     integrate("first run")
     reset_counts(counts)
     stats = integrate("timed run")
     return check_launches(name, counts, kernels, stats, opts)
+
+
+def host_stats(torch, stats):
+    """An EnsembleStats as a dict, its tensors on the host."""
+    return {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in stats._asdict().items()}
 
 
 def reset_counts(counts):
@@ -1379,9 +1422,10 @@ def start_steady_models():
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
 
-def models_phase(torch, np, bench_seq, counts, dev, steady_proc):
-    """rmtExe of the packed-bed, plug-flow and batch models on the card
-    (see the module docstring, phase 11). Returns M2's launch counts."""
+def models_phase(torch, np, bench_seq, counts, dev):
+    """rmtExe M2 and M9's RHS on the card in this process (see the module
+    docstring, phase 11; models_children reads the rest). Returns M2's
+    launch counts."""
     from rmt_tpu_torch import rmtExe
     from rmt_tpu_torch.cases import pb_case
     from rmt_tpu_torch.models import pb
@@ -1442,7 +1486,13 @@ def models_phase(torch, np, bench_seq, counts, dev, steady_proc):
         f"on the card against the CPU: {e9:.3e} of each one's max (bar "
         f"1e-12)")
     check(e9 <= 1e-12, f"models: M9 on the card differs by {e9}")
+    say(f"models: phase wall {time.perf_counter() - t_phase:.3f} s")
+    return launches
 
+
+def models_children(steady_proc):
+    """Phase 11's steady models, run by the child steady_proc: each within
+    its bar of models_ref.npz."""
     t0 = time.perf_counter()
     sout, serr = steady_proc.communicate(timeout=900)
     check(steady_proc.returncode == 0, "models: the steady-model child "
@@ -1454,35 +1504,41 @@ def models_phase(torch, np, bench_seq, counts, dev, steady_proc):
             f"points): wall {r['first_s']:.3f} s (its process's first call "
             f"of it), max_rel_err {r['max_rel_err']:.4e} (bar {r['bar']:g})")
         check(r["ok"], f"models: {r['part']} failed its check: {r}")
-    say(f"models: phase wall {time.perf_counter() - t_phase:.3f} s")
-    return launches
 
 
 def start_hetero_models():
     """A child process running rmtExe T1, T2 (FDM, OC, OCFE), T3, M5 and
-    M14 on the card (scripts/bench_torch_seq.hetero_model, one call each)
-    while this process works; it writes a JSON object of their records
-    and of the kernel launches of its process to its stdout."""
+    M14 on the card (scripts/bench_torch_seq.hetero_model, one call each),
+    then run_m14_sweep at M14_SWEEP_B members (bench_torch_seq.m14_sweep,
+    its member 0 held to that rmtExe M14), while this process works; it
+    writes a JSON object of their records and of the kernel launches of
+    its process to its stdout."""
     code = "\n".join((
         f"import sys, json; sys.path[:0] = [{ROOT!r}, "
         f"{os.path.join(ROOT, 'scripts')!r}]",
         "import torch",
         "import bench_torch_seq as b",
         "from rmt_tpu_torch.ops import cuda_block, cuda_ns, cuda_rhs",
+        "dev = torch.device('cuda:0')",
         "ref = b.models_ref()",
-        "out = [b.hetero_model(torch, torch.device('cuda:0'), m, ref, "
-        "warm=False) for m in b.HETERO_MODELS]",
+        "out = [b.hetero_model(torch, dev, m, ref, warm=False) "
+        "for m in b.HETERO_MODELS]",
+        "co_gas = next(r['co_gas'] for r in out if 'co_gas' in r)",
+        f"sweep = b.m14_sweep(torch, dev, {M14_SWEEP_B}, ref, "
+        "co_gas=co_gas)",
         "launches = {k: v for c in (cuda_block, cuda_ns, cuda_rhs) "
         "for k, v in c.LAUNCHES.items()}",
-        "print(json.dumps({'records': out, 'launches': launches}))"))
+        "print(json.dumps({'records': out, 'sweep': sweep, "
+        "'launches': launches}))"))
     return subprocess.Popen([sys.executable, "-c", code],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
 
 def steady_het_phase(torch, np, bench_seq, counts, dev, het_proc):
     """The particle, axial-dispersion and steady heterogeneous models and
-    the M14 design sweep on the card (see the module docstring, phase
-    12): every check exits nonzero; no kernel may launch."""
+    the M14 design sweep on the card, all run by the child het_proc (see
+    the module docstring, phase 12): every check exits nonzero; no kernel
+    may launch."""
     t_phase = time.perf_counter()
     reset_counts(counts)
     t0 = time.perf_counter()
@@ -1516,8 +1572,7 @@ def steady_het_phase(torch, np, bench_seq, counts, dev, het_proc):
           f"{child['launches']}")
     check(co_gas is not None, "steady_het: no rmtExe M14 record")
 
-    ref = bench_seq.models_ref()
-    r = bench_seq.m14_sweep(torch, dev, M14_SWEEP_B, ref, co_gas=co_gas)
+    r = child["sweep"]
     split = ", ".join(f"{k} {v:.3f} s" for k, v in r["split_s"].items())
     say(f"steady_het: run_m14_sweep B {r['B']} (zNo 30, n {r['n']}): wall "
         f"{r['wall_s']:.3f} s ({split}), {r['members_per_sec']:.2f} "
@@ -1560,23 +1615,44 @@ def start_dyn_models(calls):
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
 
-# the dyn_het phase's two children: the four models, and M13's chained
-# resume (three M13 runs), side by side
+# the dyn_het phase's four children, side by side (the host's work of
+# each within that of the phase-12 child, which T1 sets): rmtExe M10-M12
+# and the M13 lockstep sweep; rmtExe M13; run_m11_sweep; M13's chained
+# resume
 DYN_CHILDREN = (
-    [f"b.dyn_model(torch, dev, {m!r}, ref, warm=False)"
-     for m in ("M10", "M11", "M12", "M13")],
+    [*(f"b.dyn_model(torch, dev, {m!r}, ref, warm=False)"
+       for m in ("M10", "M11", "M12")),
+     f"b.m13_sweep(torch, dev, {M13_SWEEP_B}, ref)"],
+    ["b.dyn_model(torch, dev, 'M13', ref, warm=False)"],
+    [f"b.m11_sweep(torch, dev, {M11_SWEEP_B})"],
     ["b.m13_resume(torch, dev)"],
 )
 
 
 def dyn_het_phase(torch, np, bench_seq, counts, dev, dyn_procs):
     """The dynamic heterogeneous models, the M13 lockstep sweep and the
-    M11 sweep on the card (see the module docstring, phase 13): every
-    check exits nonzero; no kernel may launch."""
+    M11 sweep on the card, all run by the children dyn_procs (see the
+    module docstring, phase 13): every check exits nonzero; no kernel may
+    launch."""
     t_phase = time.perf_counter()
     reset_counts(counts)
-    ref = bench_seq.models_ref()
-    r = bench_seq.m13_sweep(torch, dev, M13_SWEEP_B, ref)
+    records = {}
+    for proc in dyn_procs:
+        t0 = time.perf_counter()
+        sout, serr = proc.communicate(timeout=1200)
+        check(proc.returncode == 0, "dyn_het: a model child failed: "
+              + serr.decode(errors="replace")[-2000:])
+        say(f"dyn_het: model child ready (waited "
+            f"{time.perf_counter() - t0:.1f} s)")
+        child = json.loads(sout.decode().strip().splitlines()[-1])
+        records.update((c["part"], c) for c in child["records"])
+        say(f"dyn_het: kernel launches in the model child "
+            f"{child['launches']}")
+        check(not any(child["launches"].values()),
+              f"dyn_het: a kernel launched in a model child: "
+              f"{child['launches']}")
+
+    r = records.pop("run_m13_sweep lockstep")
     split = ", ".join(f"{k} {v:.3f} s" for k, v in r["split_s"].items())
     say(f"dyn_het: run_m13_sweep lockstep B {r['B']} (zNo 10, rNo 7, tNo 5):"
         f" wall {r['wall_s']:.3f} s ({split}), {r['members_per_sec']:.3f} "
@@ -1588,7 +1664,7 @@ def dyn_het_phase(torch, np, bench_seq, counts, dev, dyn_procs):
         f"rel, solid gap {r['gap']['solid']['abs']:.3e} abs, "
         f"{r['gap']['solid']['rel']:.3e} rel (bar {r['bar']})")
     check(r["ok"], f"dyn_het: the M13 lockstep sweep failed its check: {r}")
-    r11 = bench_seq.m11_sweep(torch, dev, M11_SWEEP_B)
+    r11 = records.pop("run_m11_sweep")
     split = ", ".join(f"{k} {v:.3f} s" for k, v in r11["split_s"].items())
     say(f"dyn_het: run_m11_sweep B {r11['B']} (zNo 10, rNo 7, n "
         f"{r11['n']}): wall {r11['wall_s']:.3f} s ({split}), "
@@ -1599,40 +1675,26 @@ def dyn_het_phase(torch, np, bench_seq, counts, dev, dyn_procs):
     check(r11["ok"], "dyn_het: the M11 sweep failed its check: " + json.dumps(
         {k: v for k, v in r11.items() if k != "state"}))
 
-    state_m11 = None
-    for proc in dyn_procs:
-        t0 = time.perf_counter()
-        sout, serr = proc.communicate(timeout=1200)
-        check(proc.returncode == 0, "dyn_het: a model child failed: "
-              + serr.decode(errors="replace")[-2000:])
-        say(f"dyn_het: model child ready (waited "
-            f"{time.perf_counter() - t0:.1f} s)")
-        child = json.loads(sout.decode().strip().splitlines()[-1])
-        for c in child["records"]:
-            extra = ""
-            if "ref_attempts" in c:
-                extra = (f", attempts {c['attempts']} ({c['accepted']} "
-                         f"accepted, {c['rejected']} rejected; reference "
-                         f"{c['ref_attempts']}; bar x "
-                         f"{bench_seq.ATTEMPTS_RATIO})")
-            wall = (f"wall {c['first_s']:.3f} s (its process's first "
-                    f"call), peak {c['peak_gib']:.3f} GiB" if "first_s" in c
-                    else f"wall {c['wall_s']:.3f} s")
-            say(f"dyn_het: {c['part']}: {wall}, "
-                f"error {c['max_rel_err']:.4e} (|d| / (|ref| + "
-                f"{bench_seq.DYN_FLOOR:g}), bar {c['bar']:g}; floor 1e-7: "
-                f"{c['rel_err_1e7']:.4e}, absolute {c['max_abs_err']:.4e})"
-                f"{extra}")
-            check(c["ok"], f"dyn_het: {c['part']} failed its check: "
-                  + json.dumps({k: v for k, v in c.items() if k != "state"}))
-            state_m11 = c.get("state", state_m11)
-        say(f"dyn_het: kernel launches in the model child "
-            f"{child['launches']}")
-        check(not any(child["launches"].values()),
-              f"dyn_het: a kernel launched in a model child: "
-              f"{child['launches']}")
-    check(state_m11 is not None, "dyn_het: no rmtExe M11 record")
-    e0 = bench_seq.rel_floor(r11["state"], state_m11)
+    for c in records.values():
+        extra = ""
+        if "ref_attempts" in c:
+            extra = (f", attempts {c['attempts']} ({c['accepted']} "
+                     f"accepted, {c['rejected']} rejected; reference "
+                     f"{c['ref_attempts']}; bar x "
+                     f"{bench_seq.ATTEMPTS_RATIO})")
+        wall = (f"wall {c['first_s']:.3f} s (its process's first "
+                f"call), peak {c['peak_gib']:.3f} GiB" if "first_s" in c
+                else f"wall {c['wall_s']:.3f} s")
+        say(f"dyn_het: {c['part']}: {wall}, "
+            f"error {c['max_rel_err']:.4e} (|d| / (|ref| + "
+            f"{bench_seq.DYN_FLOOR:g}), bar {c['bar']:g}; floor 1e-7: "
+            f"{c['rel_err_1e7']:.4e}, absolute {c['max_abs_err']:.4e})"
+            f"{extra}")
+        check(c["ok"], f"dyn_het: {c['part']} failed its check: "
+              + json.dumps({k: v for k, v in c.items() if k != "state"}))
+    check("rmtExe M11" in records, "dyn_het: no rmtExe M11 record")
+    e0 = bench_seq.rel_floor(np.asarray(r11["state"]),
+                             np.asarray(records["rmtExe M11"]["state"]))
     say(f"dyn_het: run_m11_sweep member 0 against rmtExe M11 on the card "
         f"{e0:.4e} (|d| / (|ref| + {bench_seq.DYN_FLOOR:g}), bar "
         f"{bench_seq.BAR_STEADY:g})")
@@ -1722,6 +1784,245 @@ def n2_opts_phase(torch, np, mi, run, counts, dev):
         f"{errs['accurate f32 math on']:.4e}, off "
         f"{errs['accurate f32 math off']:.4e}")
     say(f"n2_opts: phase wall {time.perf_counter() - t_phase:.3f} s")
+    return total
+
+
+def mesh_worker(mesh):
+    """One rank of the mesh phase, in a child process (this script is its
+    __main__): phase 3's f32x DME sweep (B members, the reference probes
+    spliced in) twice, the second timed, then phase 4's f32 sweep once,
+    each with mesh=. Returns each run's gathered results, its wall (from
+    a barrier of the ranks to the gathered result) and this rank's
+    kernel launches in it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rmt_tpu_torch.cases import dme_case
+    from rmt_tpu_torch.parallel import run_n2_ensemble_lockstep
+    from rmt_tpu_torch.parallel.dryrun import launch_counts, launches_since
+
+    mi = dme_case.make_model_input(model="N2")
+    with np.load(os.path.join(ROOT, "bench_ref.npz")) as z:
+        offsets, t_base = z["dme_offsets"], float(z["dme_t_base"])
+    out = {}
+    sweep, idx = probe_layout(np, B, offsets)
+    for label, opts, runs in (("f32x", F32X, 2), ("f32", F32, 1)):
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            dist.barrier(group=mesh.group)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            ys, y_fin, stats = run_n2_ensemble_lockstep(
+                mi, {"T0": t_base + sweep}, out_members=idx, mesh=mesh,
+                **opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[label] = dict(ys=ys.cpu(), y_fin=y_fin.cpu(), wall=wall,
+                          stats=host_stats(torch, stats),
+                          launches=launches_since(before))
+    return out
+
+
+def same_run(torch, got, want):
+    """Whether two runs' probes, final states and statistics (per member
+    and the counters) are equal bit for bit."""
+    same = (torch.equal(got["ys"], want["ys"])
+            and torch.equal(got["y_fin"], want["y_fin"]))
+    for k, v in want["stats"].items():
+        same &= (torch.equal(got["stats"][k], v) if isinstance(v, torch.Tensor)
+                 else got["stats"][k] == v)
+    return bool(same)
+
+
+def mesh_sweep_checks(torch, np, ranks, f32x_run, f32_run, ref_ys, blocks,
+                      launched):
+    """Mesh checks (a) and (b) of the ranks' results (see the module
+    docstring, phase 15; blocks: rank_blocks)."""
+    for r, res in enumerate(ranks):
+        launched(f"mesh f32x rank {r}", res["f32x"]["launches"],
+                 F32X_KERNELS, res["f32x"]["stats"], F32X)
+        launched(f"mesh f32 rank {r}", res["f32"]["launches"],
+                 F32_KERNELS, res["f32"]["stats"], F32)
+        check(same_run(torch, res["f32x"], ranks[0]["f32x"])
+              and same_run(torch, res["f32"], ranks[0]["f32"]),
+              f"mesh: rank {r}'s gathered results differ from rank 0's")
+    a, b = ranks[0]["f32x"], ranks[0]["f32"]
+    same_a = same_run(torch, a, f32x_run)
+    say(f"mesh (a) f32x: B {B} over {MESH_RANKS} ranks, wall "
+        f"{a['wall']:.3f} s, members/s {B / a['wall']:.3f}; unsharded "
+        f"(phase 3's timed run) {f32x_run['wall']:.3f} s, members/s "
+        f"{B / f32x_run['wall']:.3f}; Jacobian refreshes "
+        f"{a['stats']['n_jev'] - 1} (unsharded "
+        f"{f32x_run['stats']['n_jev'] - 1}); bit for bit equal to phase "
+        f"3's timed run: {same_a}")
+    check(same_a, "mesh (a): the sharded f32x sweep differs from phase 3's "
+          "timed run")
+    same_b = same_run(torch, b, f32_run)
+    say(f"mesh (b) f32: B {B} over {MESH_RANKS} ranks, wall "
+        f"{b['wall']:.3f} s (the ranks' first f32 run), members/s "
+        f"{B / b['wall']:.3f}; unsharded (phase 4's timed run) "
+        f"{f32_run['wall']:.3f} s; n_jev {b['stats']['n_jev']} (unsharded "
+        f"{f32_run['stats']['n_jev']}), n_rescue {b['stats']['n_rescue']} "
+        f"(unsharded {f32_run['stats']['n_rescue']}); bit for bit equal to "
+        f"phase 4's timed run: {same_b}")
+    if not same_b:
+        mesh_b_fallback(torch, np, b, f32_run, ref_ys, blocks)
+
+
+def rank_blocks(torch, np, mi, run, dev):
+    """Phase 4's f32 sweep as separate calls on the mesh ranks' blocks
+    of B // MESH_RANKS members (the probes each holds): each call's
+    probes, final states and statistics on the host, for mesh check
+    (b)."""
+    with np.load(os.path.join(ROOT, "bench_ref.npz")) as z:
+        t_base, offsets = float(z["dme_t_base"]), z["dme_offsets"]
+    sweep, idx = probe_layout(np, B, offsets)
+    k = B // MESH_RANKS
+    blocks = []
+    for lo in range(0, B, k):
+        mine = idx[(idx >= lo) & (idx < lo + k)] - lo
+        ys, y_fin, st = run(mi, {"T0": t_base + sweep[lo:lo + k]},
+                            out_members=mine, device=dev, **F32)
+        blocks.append(dict(ys=ys.cpu(), y_fin=y_fin.cpu(),
+                           stats=host_stats(torch, st)))
+    return blocks
+
+
+def mesh_b_fallback(torch, np, got, want, ref_ys, blocks):
+    """Mesh check (b) where the sharded f32 sweep's bits differ from the
+    unsharded run's (the members' bits depend on the batch's size): the
+    largest difference and its member printed; then every member and
+    per-member statistic equal bit for bit to separate calls on the
+    ranks' blocks (the same batch size; blocks, from rank_blocks), n_jev
+    the slowest block's, the final states within the f32 leg's 5e-5 of
+    the unsharded run and the probes within 5e-5 of bench_ref.npz."""
+    d = (got["y_fin"].double() - want["y_fin"].double()).abs()
+    rel = d / want["y_fin"].double().abs().clamp(min=1e-7)
+    worst = int(torch.argmax(rel.amax(dim=1)))
+    probe = np.abs(got["ys"].double().numpy() - ref_ys) / np.maximum(
+        np.abs(ref_ys), 1e-7)
+    say(f"mesh (b) f32: the members' bits depend on the batch's size: "
+        f"largest difference {float(d.max()):.4e} ({float(rel.max()):.4e} "
+        f"relative) at member {worst}; probes' max_rel_err {probe.max():.4e}")
+    k = B // MESH_RANKS
+    same = (torch.equal(got["ys"], torch.cat([p["ys"] for p in blocks], 1))
+            and torch.equal(got["y_fin"],
+                            torch.cat([p["y_fin"] for p in blocks])))
+    for name, v in got["stats"].items():
+        if isinstance(v, torch.Tensor):
+            same &= torch.equal(v, torch.cat([p["stats"][name]
+                                              for p in blocks]))
+    slowest = max(p["stats"]["n_jev"] for p in blocks)
+    say(f"mesh (b) f32: equal bit for bit to separate calls on the ranks' "
+        f"blocks of {k}: {bool(same)}; n_jev {got['stats']['n_jev']} (the "
+        f"slowest block's {slowest})")
+    check(same, "mesh (b): the sharded f32 sweep differs from separate "
+          "calls on the ranks' blocks")
+    check(got["stats"]["n_jev"] == slowest, "mesh (b): n_jev is not the "
+          "slowest block's")
+    check(float(rel.max()) <= 5e-5, "mesh (b): final states beyond 5e-5 "
+          "of the unsharded run")
+    check(probe.max() <= 5e-5, "mesh (b): probes beyond 5e-5")
+
+
+def estimation_reference(torch, dev, b):
+    """The dry run's estimation step on one process at b members:
+    (loss, gradients)."""
+    from rmt_tpu_torch.parallel import dryrun, make_estimation_step
+
+    spec, params, axes, target, theta0 = dryrun.estimation_problem(b, dev)
+    step = make_estimation_step(spec, axes, target, device=dev,
+                                **dryrun.ESTIMATION)
+    loss, grads, _ = step.value_and_grad(theta0, params)
+    return float(loss), {k: float(v) for k, v in grads.items()}
+
+
+# the mesh phase's dry runs: their backends and numbers of ranks
+DRY_RUNS = {"gloo": MESH_RANKS, "nccl": 1}
+# the mesh phase fails when its ranks have not ended this long after it
+# waits for them
+RANKS_TIMEOUT_S = 300
+
+
+def start_dry_runs(dev, store):
+    """The ranks of both dry runs of the mesh phase (dryrun_multichip's:
+    dryrun.start of dryrun_worker), started at once on dev with their
+    stores under store; dryrun.dryrun_results collects each. Their ranks
+    are bound by the host, so they run beside this process's next
+    phases."""
+    from rmt_tpu_torch.parallel import dryrun
+
+    return {backend: dryrun.start(dryrun.dryrun_worker, n, backend, dev,
+                                  store)
+            for backend, n in DRY_RUNS.items()}
+
+
+def mesh_phase(torch, np, dev, f32x_run, f32_run, store, dry_runs, prep):
+    """The dp mesh (see the module docstring, phase 15): phase 3's f32x
+    sweep and phase 4's f32 sweep over MESH_RANKS gloo ranks sharing the
+    card, held to those phases' timed runs (f32x_run, f32_run), then the
+    dry runs over the same ranks and over one NCCL rank (dry_runs, the
+    ranks start_dry_runs started). prep, computed beside the children:
+    "blocks" (rank_blocks) and "est_ref" ({b: estimation_reference at b
+    members}). Returns the phase's kernel launches, every rank's."""
+    from rmt_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    with np.load(os.path.join(ROOT, "bench_ref.npz")) as z:
+        ref_ys = z["dme_ys"]
+    est_ref = prep["est_ref"]
+    total = {}
+
+    def launched(name, counts, kernels, stats, opts):
+        launches = check_launches(name, (counts,), kernels,
+                                  SimpleNamespace(**stats), opts)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    ranks = dryrun.start(mesh_worker, MESH_RANKS, "gloo", dev,
+                         store).results(RANKS_TIMEOUT_S)
+    say(f"mesh: {MESH_RANKS} gloo ranks on {dev}: the sweeps' ranks "
+        f"ended in {time.perf_counter() - t0:.1f} s")
+    mesh_sweep_checks(torch, np, ranks, f32x_run, f32_run, ref_ys,
+                      prep["blocks"], launched)
+    t0 = time.perf_counter()
+    dry = {backend: dryrun.dryrun_results(launch, RANKS_TIMEOUT_S)
+           for backend, launch in dry_runs.items()}
+    say(f"mesh (c) dry runs over {MESH_RANKS} gloo ranks and 1 NCCL rank "
+        f"on {dev}, at once beside phases 5-14: "
+        + ", ".join(f"{backend} {launch.wall:.1f} s"
+                    for backend, launch in dry_runs.items())
+        + f" from their start to their last rank's result (waited "
+        f"{time.perf_counter() - t0:.1f} s here)")
+    for backend, res in dry.items():
+        say(f"mesh (c) {backend}: rank 0's seconds by phase "
+            + json.dumps({k: round(v, 3) for k, v in res["walls"].items()}))
+    ns_defaults = dict(j_every=16, ns_refresh=5, ns_step=1)
+    for backend, res in dry.items():
+        loss, grads = est_ref[2 * DRY_RUNS[backend]]
+        est = res["estimation"]
+        err = max([abs(est["loss"] - loss) / abs(loss)]
+                  + [abs(est["grads"][k] - g) / abs(g)
+                     for k, g in grads.items()])
+        say(f"mesh (c) {backend}: estimation loss {est['loss']!r} "
+            f"(unsharded {loss!r}), largest relative difference of "
+            f"loss and gradient {err:.3e} (bar 1e-12)")
+        check(err <= 1e-12, f"mesh (c) {backend}: the estimation step "
+              "differs from the unsharded step")
+        for r, counts in enumerate(res["launches_by_rank"]):
+            for run_name, kernels, opts in (
+                    ("lockstep", F32_KERNELS,
+                     dict(dryrun.LOCKSTEP, **ns_defaults)),
+                    ("lockstep_f32x", F32X_KERNELS, dryrun.F32X)):
+                launched(f"mesh (c) {backend} {run_name} rank {r}",
+                         counts[run_name], kernels,
+                         res[run_name]["stats"], opts)
+            for ph in ("estimation", "m13"):
+                check(not any(counts[ph].values()),
+                      f"mesh (c) {backend}: {ph} launched a kernel")
+    say(f"mesh: phase wall {time.perf_counter() - t_phase:.3f} s")
     return total
 
 
@@ -1882,6 +2183,59 @@ def est_phase(torch, np, bench_est, counts, dev):
     say(f"est: phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
+def start_host_phases(ref_n1_path):
+    """A child process running phases 8 and 9 (seq and est: the float64
+    paths bound by the host, which launch none of the kernels) on the
+    card while this process works, the N1 reference at ref_n1_path
+    (.npy); it prints their lines and, last, a JSON object of their
+    walls."""
+    code = "\n".join((
+        f"import sys; sys.path[:0] = [{ROOT!r}, "
+        f"{os.path.join(ROOT, 'scripts')!r}]",
+        "import chip_smoke",
+        f"chip_smoke.host_phases({ref_n1_path!r})"))
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def host_phases(ref_n1_path):
+    """Phases 8 and 9 in the child start_host_phases starts; a failing
+    check exits nonzero."""
+    import numpy as np
+    import torch
+
+    import bench_torch_estimation as bench_est
+    import bench_torch_seq as bench_seq
+    from rmt_tpu_torch.ops import cuda_block, cuda_ns, cuda_rhs
+
+    dev = torch.device("cuda:0")
+    counts = (cuda_block.LAUNCHES, cuda_rhs.LAUNCHES, cuda_ns.LAUNCHES)
+    walls = {}
+    for label, fn, args in (
+            ("seq", seq_phase, (bench_seq, counts, dev,
+                                np.load(ref_n1_path))),
+            ("est", est_phase, (bench_est, counts, dev))):
+        t0 = time.perf_counter()
+        fn(torch, np, *args)
+        walls[label] = time.perf_counter() - t0
+    print(json.dumps(walls), flush=True)
+
+
+def host_phases_result(proc):
+    """The seq and est child's lines, printed here, and its phases' walls.
+    A failed child exits this run nonzero."""
+    t0 = time.perf_counter()
+    sout, serr = proc.communicate(timeout=900)
+    check(proc.returncode == 0, "seq/est: the child failed: "
+          + serr.decode(errors="replace")[-2000:])
+    lines = sout.decode().strip().splitlines()
+    for line in lines[:-1]:
+        say(line)
+    say(f"seq/est: child ready (waited {time.perf_counter() - t0:.1f} s); "
+        "its phase walls (s): " + json.dumps(
+            {k: round(v, 1) for k, v in json.loads(lines[-1]).items()}))
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -1901,23 +2255,30 @@ def main():
     ref_proc = start_n1_reference()
     children = [ref_proc]
     benches = SimpleNamespace(n1=bench_n1, seq=bench_seq, est=bench_est)
+    store = tempfile.TemporaryDirectory()
     try:
-        phases(torch, np, card, dev, benches, ref_proc, children, t_start)
+        phases(torch, np, card, dev, benches, ref_proc, children, t_start,
+               store.name)
     finally:
         for proc in children:
-            if proc.poll() is None:
-                proc.kill()
-            proc.communicate()
+            if isinstance(proc, subprocess.Popen):
+                if proc.poll() is None:
+                    proc.kill()
+                proc.communicate()
+            else:  # the ranks of a dry run (dryrun.Launch)
+                proc.stop()
+        store.cleanup()
 
 
-def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
+def phases(torch, np, card, dev, benches, ref_proc, children, t_start,
+           store):
     from torch.func import vmap
 
     from rmt_tpu_torch.cases import ch4_case, dme_case
     from rmt_tpu_torch.kinetics.dsl import accurate_f32_math
     from rmt_tpu_torch.models import homo
     from rmt_tpu_torch.ops import _build, cuda_block, cuda_ns, cuda_rhs
-    from rmt_tpu_torch.parallel import (prepare_n2_ensemble,
+    from rmt_tpu_torch.parallel import (dryrun, prepare_n2_ensemble,
                                         run_n2_ensemble_lockstep)
     from rmt_tpu_torch.parallel.ensemble import _cast
     from rmt_tpu_torch.solvers.stiff_ensemble import _transformed_tableau
@@ -1950,13 +2311,18 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
 
     rhs_fns, rhs_ch4 = fused(ens), fused(ens_ch4)
     rhs_30 = fused(ens30, accurate_math=False)
+    # the mesh phase's dry run integrates phase 2's chunk at zNo 8: its
+    # ranks load these libraries, none builds one
+    with dryrun.n2_grid(8, 2):
+        rhs_8 = fused(prepare_n2_ensemble(
+            mi, dryrun.lockstep_sweep(2), device=dev), accurate_math=False)
     t0 = time.perf_counter()
     block_src = (_build.CSRC / "block.cu").read_text()
     _build.compile_sources(
         [("block", block_src), cuda_ns.build_job(), cuda_ns.wide_build_job()]
         + [(f.kernel_name, f.source())
            for f in (*rhs_fns.values(), *rhs_ch4.values(),
-                     *rhs_30.values())])
+                     *rhs_30.values(), *rhs_8.values())])
     say(f"build: {time.perf_counter() - t0:.1f} s (nvcc, all sources at "
         f"once, into {_build.build_dir()})")
     # registers, spills and static shared memory of every kernel the paths
@@ -2032,48 +2398,67 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
         return out
 
     counts = (cuda_block.LAUNCHES, cuda_rhs.LAUNCHES, cuda_ns.LAUNCHES)
+    f32x_run, f32_run = {}, {}
     by_path = {
         "f32x": phase(
             "f32x sweep", sweep_phase, torch, np, mi,
             run_n2_ensemble_lockstep, counts, dev, name="f32x sweep",
-            chem="dme", b=B, opts=F32X, bar=1e-6, kernels=F32X_KERNELS),
+            chem="dme", b=B, opts=F32X, bar=1e-6, kernels=F32X_KERNELS,
+            keep=f32x_run),
         "f32": phase(
             "f32 sweep", sweep_phase, torch, np, mi,
             run_n2_ensemble_lockstep, counts, dev, name="f32 sweep",
-            chem="dme", b=B, opts=F32, bar=5e-5, kernels=F32_KERNELS),
-        "ch4_f32x": phase(
-            "ch4 guard", sweep_phase, torch, np, mi_ch4,
-            run_n2_ensemble_lockstep, counts, dev, name="ch4 guard",
-            chem="ch4", b=b_ch4, opts=F32X, bar=1e-6, kernels=F32X_KERNELS),
+            chem="dme", b=B, opts=F32, bar=5e-5, kernels=F32_KERNELS,
+            keep=f32_run),
     }
+    # from here on, the children run the host-bound work (sequential Radau
+    # integrations and Newton solves of one state each, the float64 paths,
+    # the dry runs' small batches) beside this process's phases: the card
+    # then interleaves several processes' launches
     ref_n1 = n1_reference(np, ref_proc)
+    ref_n1_path = os.path.join(store, "ref_n1.npy")
+    np.save(ref_n1_path, ref_n1)
+    host_proc = start_host_phases(ref_n1_path)
+    steady_proc = start_steady_models()
+    het_proc = start_hetero_models()
+    dyn_procs = [start_dyn_models(calls) for calls in DYN_CHILDREN]
+    children += [host_proc, steady_proc, het_proc, *dyn_procs]
+    dry_runs = start_dry_runs(dev, store)
+    children += dry_runs.values()
+    by_path["ch4_f32x"] = phase(
+        "ch4 guard", sweep_phase, torch, np, mi_ch4,
+        run_n2_ensemble_lockstep, counts, dev, name="ch4 guard",
+        chem="ch4", b=b_ch4, opts=F32X, bar=1e-6, kernels=F32X_KERNELS)
     by_path["n1"] = phase("n1 sweep", n1_phase, torch, np, benches.n1,
                           counts, dev, ref_n1)
     phase("microbatch", microbatch_phase, torch, np, mi,
           run_n2_ensemble_lockstep, dev)
-    # the steady models and the phase-12 models run in two children
-    # through seq and est (the host's work: sequential Radau integrations
-    # and Newton solves of one state each)
-    steady_proc = start_steady_models()
-    het_proc = start_hetero_models()
-    dyn_procs = [start_dyn_models(calls) for calls in DYN_CHILDREN]
-    children += [steady_proc, het_proc, *dyn_procs]
-    phase("seq", seq_phase, torch, np, benches.seq, counts, dev, ref_n1)
-    phase("est", est_phase, torch, np, benches.est, counts, dev)
     wide = phase("f32_wide", f32_wide_phase, torch, np, homo, mi,
                  run_n2_ensemble_lockstep, counts, dev)
     by_path["f32_wide_f32x"], by_path["f32_wide_f32"] = wide["f32x"], \
         wide["f32"]
     by_path["m2"] = phase("models", models_phase, torch, np, benches.seq,
-                          counts, dev, steady_proc)
+                          counts, dev)
+    # the mesh phase's own runs on this process: phase 4's sweep on the
+    # ranks' blocks and the dry runs' estimation step
+    mesh_prep = phase("mesh prep", lambda: {
+        "blocks": rank_blocks(torch, np, mi, run_n2_ensemble_lockstep, dev),
+        "est_ref": {b: estimation_reference(torch, dev, b)
+                    for b in (2 * n for n in DRY_RUNS.values())}})
+    by_path["n2_opts"] = phase("n2_opts", n2_opts_phase, torch, np, mi,
+                               run_n2_ensemble_lockstep, counts, dev)
+    # the children's results, then the mesh phase alone on the card
+    phase("seq and est results", host_phases_result, host_proc)
+    phase("models results", models_children, steady_proc)
     phase("steady_het", steady_het_phase, torch, np, benches.seq, counts,
           dev, het_proc)
     phase("dyn_het", dyn_het_phase, torch, np, benches.seq, counts, dev,
           dyn_procs)
-    by_path["n2_opts"] = phase("n2_opts", n2_opts_phase, torch, np, mi,
-                               run_n2_ensemble_lockstep, counts, dev)
+    by_path["mesh"] = phase("mesh", mesh_phase, torch, np, dev, f32x_run,
+                            f32_run, store, dry_runs, mesh_prep)
     say("phase walls (s): " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
+    say(f"whole run: {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "block_factor": ("rmt_tpu_torch/csrc/block.cu",
@@ -2094,10 +2479,11 @@ def phases(torch, np, card, dev, benches, ref_proc, children, t_start):
                                "rmt_tpu/ops/pallas_ns.py:112"),
     }
     # launches: the main paths' runs together (the two DME legs' timed
-    # runs, the N1 sweep, both f32_wide legs, rmtExe M2 and the n2_opts
-    # checks); each path's own count rides along (the CH4 guard's too)
+    # runs, the N1 sweep, both f32_wide legs, rmtExe M2, the n2_opts
+    # checks and the mesh phase's ranks); each path's own count rides
+    # along (the CH4 guard's too)
     main_paths = ("f32x", "f32", "n1", "f32_wide_f32x", "f32_wide_f32", "m2",
-                  "n2_opts")
+                  "n2_opts", "mesh")
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=sum(by_path[p][k] for p in main_paths),
                     launches_by_path={p: v[k] for p, v in by_path.items()},

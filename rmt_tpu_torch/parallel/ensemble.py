@@ -6,7 +6,8 @@
 # A batch of reactors -- any leaf of the parameter dict may be swept:
 # inlet T/P/composition, geometry, heat exchange, and the kinetic
 # constants through kinetic overrides -- integrates as one ensemble on one
-# device. Three entry points:
+# device, or over a dp mesh (parallel/mesh.py: a torch.distributed
+# process group, mesh=) as one block of members a rank. Entry points:
 #
 #   * run_n2_ensemble / make_n2_ensemble / make_n1_ensemble: the
 #     reference's jax.vmap of the sequential radau.odeint (or
@@ -40,8 +41,12 @@
 #     microbatch=K bounds the live state: a host loop integrates the
 #     sweep K members at a time and joins the slices.
 #
-# Left for later ports: mesh sharding (make_mesh, shard_batch; mesh=
-# raises NotImplementedError) and lower_only.
+# mesh= follows rmt_tpu's calling convention: every rank passes the same
+# whole sweep, the entry point keeps this rank's block of members
+# (mesh.shard_batch) and returns, on every rank, the whole batch's
+# result in member order (the counterpart of JAX's global array); the
+# scalar counters are the whole batch's. Left out: lower_only (XLA
+# lowering, which PyTorch has no counterpart for).
 
 from __future__ import annotations
 
@@ -52,10 +57,12 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from .. import config
 from ..models import homo
 from ..ops import cuda_rhs
 from ..solvers import dopri5, radau, stiff_ensemble
+# make_mesh and shard_batch are re-exported: rmt_tpu keeps them here
+from .mesh import (any_across, device_for, gather_members, gather_tree,
+                   make_mesh, shard_batch, shard_rows)  # noqa: F401
 
 _f32, _f64 = torch.float32, torch.float64
 
@@ -111,11 +118,19 @@ def _solver(kind: str):
     return {"radau": radau, "dopri5": dopri5}[kind]
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "rmt_tpu_torch does not have mesh sharding yet (make_mesh / "
-            "shard_batch); run on one device with mesh=None")
+def _gathered(mesh, out):
+    """A sweep's result dict with every per-member entry gathered over
+    the mesh (unchanged without one); the shared output times "ts" and
+    the whole batch's counter "rescued" as they are."""
+    if mesh is None:
+        return out
+    return {k: v if k in ("ts", "rescued") else gather_members(mesh, v)
+            for k, v in out.items()}
+
+
+def _batch_size(sweep):
+    """The member count of a sweep (its first swept leaf's length)."""
+    return len(next(iter(sweep.values())))
 
 
 def _repeat(params, axes, reps):
@@ -175,12 +190,14 @@ def _batched_runner(spec, rhs, initial_state, grid, rtol, atol, solver,
     return run
 
 
-def _runners(spec, rhs, initial_state, grid, rtol, atol, solver):
+def _runners(spec, rhs, initial_state, grid, rtol, atol, solver, mesh=None):
     """(single, build) of a model on the sequential integrator: single(p)
     integrates one member's parameters, (ys (T, n), n_fev); build(axes)
     returns fn(params) -> (ys (B, T, n), n_fev (B,)) over a sweep whose
     batched leaves ``axes`` marks, every member with the result single
-    gives it up to rounding (the stages are batched differently)."""
+    gives it up to rounding (the stages are batched differently). With a
+    mesh, fn takes this rank's share of the sweep (shard_batch) and
+    returns the whole batch's result."""
     def single(p):
         d = homo.feed_state(spec, p)
         y0 = initial_state(spec, p, d)
@@ -195,6 +212,9 @@ def _runners(spec, rhs, initial_state, grid, rtol, atol, solver):
     def build(axes):
         def fn(params):
             ys, stats = run(params, axes)
+            if mesh is not None:
+                return gather_members(mesh, ys), gather_members(mesh,
+                                                                stats.n_fev)
             return ys, stats.n_fev
 
         return fn
@@ -217,10 +237,14 @@ def make_n2_ensemble(spec: homo.HomoSpec, rtol: float = 1e-7,
     """(single, build) runners of the N2 dynamic model on the sequential
     integrator (rmt_tpu's make_n2_ensemble; see _runners): ys
     (tNo+1, n) a member, each member with its own output times when opT
-    is swept. For the lockstep integrator use run_n2_ensemble_lockstep."""
-    _no_mesh(mesh)
+    is swept. With a mesh, build(axes)'s fn takes this rank's share of
+    the sweep (shard_batch, as rmt_tpu's callers place theirs) and
+    returns the whole batch's result on every rank. For the lockstep
+    integrator use run_n2_ensemble_lockstep."""
+    if mesh is not None:
+        device_for(mesh, None)
     return _runners(spec, homo.make_n2_rhs(spec), homo.n2_initial_state,
-                    _n2_grid(spec), rtol, atol, solver)
+                    _n2_grid(spec), rtol, atol, solver, mesh)
 
 
 def run_n2_ensemble(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
@@ -235,16 +259,21 @@ def run_n2_ensemble(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
 
     Returns (ys, nfev): ys (B, tNo+1, varNo*zNo) dimensionless states,
     nfev (B,); with return_stats=True (ys, stats), the integrator's
-    per-member statistics (radau.RadauStats / dopri5.Dopri5Stats).
+    per-member statistics (radau.RadauStats / dopri5.Dopri5Stats). With
+    a mesh (on its device) this rank integrates its block of members and
+    every rank returns the whole batch's result.
     """
-    _no_mesh(mesh)
-    device = config.resolve_device(device)
+    device = device_for(mesh, device)
     spec = homo.build_spec(model_input)
     base = homo.build_params(model_input, device=device)
     params, axes = batch_params(base, sweep)
+    if mesh is not None:
+        params = shard_batch(mesh, params, axes)
     run = _batched_runner(spec, homo.make_n2_rhs(spec), homo.n2_initial_state,
                           _n2_grid(spec), rtol, atol, solver, solver_kwargs)
     ys, stats = run(params, axes)
+    if mesh is not None:
+        ys, stats = gather_members(mesh, ys), gather_tree(mesh, stats)
     return (ys, stats) if return_stats else (ys, stats.n_fev)
 
 
@@ -278,7 +307,7 @@ class N2Ensemble(NamedTuple):
 
 def prepare_n2_ensemble(model_input: Mapping[str, Any],
                         sweep: Mapping[str, Any], device=None,
-                        dtype=_f32, rhs_dtype=None) -> N2Ensemble:
+                        dtype=_f32, rhs_dtype=None, mesh=None) -> N2Ensemble:
     """The inputs of an N2 lockstep ensemble on ``device`` (default: the
     CUDA card; without one, a call that names no device raises instead of
     running on the CPU, see config.resolve_device): states and output
@@ -291,16 +320,20 @@ def prepare_n2_ensemble(model_input: Mapping[str, Any],
     then rounded), so the integrated problem is the one the JAX package
     integrates. A float64 RHS keeps the float64 parameters and derives
     its feed state from them (accurate_rates="full", dtype=float64).
+    With a mesh, the inputs of this rank's block of members, on the
+    mesh's device.
     """
     if "opT" in sweep:
         raise ValueError("the lockstep integrator requires a shared period")
     if not sweep:
         raise ValueError("the sweep must name at least one batched leaf")
     rhs_dtype = rhs_dtype or dtype
-    device = config.resolve_device(device)
+    device = device_for(mesh, device)
     spec = homo.build_spec(model_input)
     base = homo.build_params(model_input, dtype=_f64, device=device)
     params, axes = batch_params(base, sweep)
+    if mesh is not None:
+        params = shard_batch(mesh, params, axes)
     p_rhs = _cast(params, rhs_dtype)
 
     def derive(q):
@@ -419,8 +452,16 @@ def run_n2_ensemble_lockstep(
 
     The inputs are made by prepare_n2_ensemble on ``device``: the CUDA
     card unless the caller names another (pass device="cpu" for the
-    CPU; with no card and no device= it raises). mesh= raises:
-    the port has no mesh sharding yet.
+    CPU; with no card and no device= it raises).
+
+    mesh (parallel.mesh.Mesh, on its device): every rank passes the
+    whole sweep and integrates its block of members; the integrator ORs
+    its per-chunk flags over the ranks, so every rank runs the whole
+    batch's chunks and rescues. Every rank returns the whole batch's ys
+    (or, with out_members, the probes in the caller's order, each
+    recorded by the rank that holds it, and every member's final state)
+    and per-member statistics, in member order; n_jev and n_rescue are
+    the unsharded run's. Not with microbatch (ValueError, as rmt_tpu).
 
     microbatch=K (K < B, B a multiple of K): the sweep's members are
     integrated K at a time, one call of the single-batch path for each
@@ -435,12 +476,13 @@ def run_n2_ensemble_lockstep(
     stiff_ensemble.odeint_ensemble) the return is (ys_sel, y_final,
     stats).
     """
-    _no_mesh(mesh)
     _check_lockstep_options(accurate_rates, cheap_sweeps, exact_solve,
                             colored_jacobian, batched_rhs, fused_rhs, dtype)
     if microbatch is not None:
-        b_total = len(next(iter(sweep.values()))) if sweep else 0
+        b_total = _batch_size(sweep) if sweep else 0
         if b_total > microbatch:
+            if mesh is not None:
+                raise ValueError("microbatch and mesh are mutually exclusive")
             return _run_microbatches(
                 model_input, sweep, b_total, int(microbatch),
                 dict(rtol=rtol, atol=atol, exact_solve=exact_solve,
@@ -456,7 +498,7 @@ def run_n2_ensemble_lockstep(
                  accurate_rates in (False, "df32") and not use_batched
                  and dtype == _f32)
     e = prepare_n2_ensemble(model_input, sweep, device, dtype=dtype,
-                            rhs_dtype=_f64 if full else dtype)
+                            rhs_dtype=_f64 if full else dtype, mesh=mesh)
     spec, p, axes, dB, y0B = e.spec, e.params, e.axes, e.d, e.y0
     Bsz, n_state = y0B.shape
 
@@ -497,6 +539,10 @@ def run_n2_ensemble_lockstep(
         jac_colored = lambda t, y: jcB(t, y, p, dB)
 
     kw = dict(solver_kwargs)
+    probes = None
+    if mesh is not None and kw.get("out_members") is not None:
+        probes = _Probes(mesh, _batch_size(sweep), kw["out_members"])
+        kw["out_members"] = probes.local
     if use_fused:
         # residuals: the fused RHS over member rows (stage-stacked for
         # stages)
@@ -532,8 +578,46 @@ def run_n2_ensemble_lockstep(
     else:
         kw["jac"] = lambda t, y: stiff_ensemble.batched_jacobian(f_torch, t,
                                                                  y)
-    return stiff_ensemble.odeint_ensemble(
-        f, y0B, e.ts, rtol=rtol, atol=atol, batched=True, **kw)
+    out = stiff_ensemble.odeint_ensemble(
+        f, y0B, e.ts, rtol=rtol, atol=atol, batched=True, mesh=mesh, **kw)
+    if mesh is None:
+        return out
+    if probes is None:
+        ys, stats = out
+        return gather_members(mesh, ys, dim=1), gather_tree(mesh, stats)
+    ys_sel, y_fin, stats = out
+    return (probes.gather(ys_sel), gather_members(mesh, y_fin),
+            gather_tree(mesh, stats))
+
+
+class _Probes:
+    """out_members over a dp mesh: the caller's global member indices,
+    this rank's share of them as local indices (``local``, in the
+    caller's order), and the gather that puts every rank's recorded
+    probes back in the caller's order. Every rank knows every rank's
+    share (the blocks are contiguous), so the gather pads each share to
+    the largest and picks the columns out."""
+
+    def __init__(self, mesh, b_total, out_members):
+        idx = np.asarray(out_members, np.int64)
+        k = b_total // mesh.size
+        owner = idx // k
+        counts = np.bincount(owner, minlength=mesh.size)
+        self.mesh, self.width = mesh, int(counts.max())
+        self.local = idx[owner == mesh.rank] - mesh.rank * k
+        # column of each probe in the gathered (n_out, size * width, n)
+        rank_pos = np.zeros(len(idx), np.int64)
+        for r in range(mesh.size):
+            mine = np.nonzero(owner == r)[0]
+            rank_pos[mine] = r * self.width + np.arange(len(mine))
+        self.take = torch.as_tensor(rank_pos, device=mesh.device)
+
+    def gather(self, ys_sel):
+        pad = self.width - ys_sel.shape[1]
+        if pad:
+            ys_sel = torch.cat([ys_sel, ys_sel.new_zeros(
+                (ys_sel.shape[0], pad, ys_sel.shape[2]))], dim=1)
+        return gather_members(self.mesh, ys_sel, dim=1)[:, self.take]
 
 
 def n2_mode_functions(spec, accurate_rates=False):
@@ -625,19 +709,22 @@ def run_m14_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
     each closed by a device synchronisation.
 
     Returns a dict: states (B, n_comp+1, 2, zNo) dimensionless
-    [gas|solid] profiles, converged (B,) bool, res_norm (B,).
+    [gas|solid] profiles, converged (B,) bool, res_norm (B,). With a
+    mesh, this rank solves its block of members and every rank returns
+    the whole batch's.
     """
     from ..models import hetero
     from ..ops import stencils
     from ..solvers import newton
 
-    _no_mesh(mesh)
-    device = config.resolve_device(device)
+    device = device_for(mesh, device)
     zmesh, z_no = stencils.solver_grid(model_input, 30)
     ramp_list = hetero.m14_ramps(model_input)
     spec = hetero.m14_build_spec(model_input, z_no=z_no)
     params, axes = batch_params(
         hetero.m14_params(model_input, device=device), sweep)
+    if mesh is not None:
+        params = shard_batch(mesh, params, axes)
     res_fn = hetero.make_m14_residual(spec, mesh=zmesh)
 
     def derive(q):
@@ -678,11 +765,11 @@ def run_m14_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
             torch.cuda.synchronize(device)
         timings["polish"] = (timings.get("polish", 0.0)
                              + time.perf_counter() - t0)
-    return {
+    return _gathered(mesh, {
         "states": x.reshape(Bsz, spec.n_comp + 1, 2, spec.z_no),
         "converged": converged,
         "res_norm": res_norm,
-    }
+    })
 
 
 def _member_grid(spec, params, axes):
@@ -702,14 +789,15 @@ def _coupled_dyn_sweep(model_input, sweep, model_id, rtol, atol, mesh, y0,
     cotangent a row color serving every member; rmt_tpu's forward-mode
     column colors give the same matrix). y0: (n,) shared or (B, n) per
     member; default the model's seed (M10, M11) or the physical startup
-    state (M12).
+    state (M12). With a mesh, this rank integrates its block of members
+    (a (B, n) y0 cut the same way) and every rank returns the whole
+    batch's result.
     Returns (ys (B, tNo+1, n), RadauStats of (B,) tensors)."""
     from ..models import hetero_dyn as hd
     from ..ops import jacobian as jac_ops
     from ..ops import stencils
 
-    _no_mesh(mesh)
-    device = config.resolve_device(device)
+    device = device_for(mesh, device)
     sc = model_input.get("solver-config", {})
     if model_id == "M11":
         zmesh, z_no = stencils.solver_grid(model_input, 10)
@@ -748,6 +836,9 @@ def _coupled_dyn_sweep(model_input, sweep, model_id, rtol, atol, mesh, y0,
             raise ValueError(f"y0 must have shape ({bsz}, {n}) or ({n},); "
                              f"got {tuple(y0B.shape)}")
     y0B = y0B.expand(bsz, n).contiguous()
+    if mesh is not None:
+        params = shard_batch(mesh, params, axes)
+        y0B = shard_rows(mesh, y0B)
     if model_id == "M10":
         fB = hd.over_members(lambda t, y, pp: rhs(t, y, pp), params, axes)
         fS = hd.over_members(lambda t, y, pp: vmap(
@@ -768,10 +859,11 @@ def _coupled_dyn_sweep(model_input, sweep, model_id, rtol, atol, mesh, y0,
         return jac_ops.batched_row_colored_jacobian(lambda x: f(t, x),
                                                     coloring)(y)
 
-    return radau.odeint_batched(
+    out = radau.odeint_batched(
         f, y0B, _member_grid(spec, params, axes).to(y0B.dtype), rtol=rtol,
         atol=atol, jac=jac, f_stages=f_stages, timings=timings,
         **solver_kwargs)
+    return out if mesh is None else gather_tree(mesh, out)
 
 
 def run_m11_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
@@ -835,13 +927,15 @@ def run_m13_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
     per interval, solid (B, tNo, noLayer, rNo, zNo), converged (B,) bool
     (solid Newton at every interval), unreached (B,) int (gas budget
     misses), ts (tNo+1,); the lockstep engine adds rescued (the intervals
-    whose homotopy rescue ran).
+    whose homotopy rescue ran). With a mesh, this rank integrates its
+    block of members and every rank returns the whole batch's result
+    (the lockstep engine decides each interval's rescue for the whole
+    batch, so rescued is the unsharded run's).
     """
     from ..models import hetero_dyn as hd
     from ..ops import stencils
 
-    _no_mesh(mesh)
-    device = config.resolve_device(device)
+    device = device_for(mesh, device)
     zmesh, z_no = stencils.solver_grid(model_input, 10)
     if "opT" in sweep:
         raise ValueError("the M13 sweep requires a shared period")
@@ -851,8 +945,9 @@ def run_m13_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
                 "engine='lockstep' supports the normal mesh only (the "
                 "refined dense-zone stencils couple z-2, which the "
                 "block-tridiagonal stage solves cannot represent)")
-        return _run_m13_sweep_lockstep(model_input, sweep, z_no, rtol, atol,
-                                       device, timings, **engine_kwargs)
+        return _gathered(mesh, _run_m13_sweep_lockstep(
+            model_input, sweep, z_no, rtol, atol, device, timings, mesh,
+            **engine_kwargs))
     if engine != "vmap":
         raise ValueError(f"unknown engine {engine!r}")
     if engine_kwargs:
@@ -864,21 +959,23 @@ def run_m13_sweep(model_input: Mapping[str, Any], sweep: Mapping[str, Any],
                              t_no=int(sc.get("tNo", 5)))
     params, axes = batch_params(hd.m13_params(model_input, device=device),
                                 sweep)
+    if mesh is not None:
+        params = shard_batch(mesh, params, axes)
     gas_t, solid_t, conv_t, unr_t, ts_grid = hd.make_m13_driver(
         spec, mesh=zmesh, rtol=rtol, atol=atol)(params, axes,
                                                 timings=timings)
     b = gas_t.shape[0]
-    return {
+    return _gathered(mesh, {
         "gas": gas_t.reshape(b, spec.t_no, spec.n_layer, spec.z_no),
         "solid": solid_t,
         "converged": conv_t.all(dim=1),
         "unreached": unr_t.sum(dim=1),
         "ts": ts_grid,
-    }
+    })
 
 
 def _run_m13_sweep_lockstep(model_input, sweep, z_no, rtol, atol, device,
-                            timings, max_steps_gas: int = 768,
+                            timings, mesh=None, max_steps_gas: int = 768,
                             homotopy_stages: int = 8,
                             newton_iters_solid: int = 30,
                             tol_solid: float | None = None):
@@ -896,7 +993,9 @@ def _run_m13_sweep_lockstep(model_input, sweep, z_no, rtol, atol, device,
     warm-started solves, judged by the last stage alone; nodes that still
     fail keep the previous solid state and their member reports
     converged=False. Whether the rescue runs is one read by the host an
-    interval."""
+    interval; over a mesh that flag is OR-ed over the ranks (rmt_tpu's
+    lax.cond decides it for the whole batch), and the gas phase's chunks
+    are the whole batch's. The result is this rank's members'."""
     from ..models import hetero_dyn as hd
     from ..ops import jacobian as jac_ops
     from ..solvers import newton
@@ -907,6 +1006,8 @@ def _run_m13_sweep_lockstep(model_input, sweep, z_no, rtol, atol, device,
                              t_no=int(sc.get("tNo", 5)))
     params, axes = batch_params(hd.m13_params(model_input, device=device),
                                 sweep)
+    if mesh is not None:
+        params = shard_batch(mesh, params, axes)
     dtype = params["T0"].dtype
     if tol_solid is None:
         # the reachable residual floor of the LHHW residual: 1e-9 in
@@ -980,7 +1081,7 @@ def _run_m13_sweep_lockstep(model_input, sweep, z_no, rtol, atol, device,
             fB, y_gas, ts_grid[k:k + 2], rtol=rtol, atol=atol, jac=jac_gas,
             block=(n_layer, z_no, "tridiag"), max_steps=max_steps_gas,
             f_stages=lambda t_st, Y: gas_st(t_st, Y, d, cs_surf, ts_surf),
-            batched=True)
+            batched=True, mesh=mesh)
         y_gas = ys[-1]
         unreached = (stats.seg < 1).to(torch.int32)
         clock = lap(clock, "gas")
@@ -992,7 +1093,8 @@ def _run_m13_sweep_lockstep(model_input, sweep, z_no, rtol, atol, device,
         x_sol, conv_n = sol.x, sol.converged
         need = ~conv_n
         clock = lap(clock, "solid")
-        if bool(need.any()):
+        if (bool(need.any()) if mesh is None
+                else any_across(mesh, need.any()[None])[0]):
             rescued += 1
             xk, conv_h = x0, conv_n
             for w in ws:

@@ -13,7 +13,10 @@
 # as one batch: the Radau path through solvers/implicit_diff.py's
 # radau_fixed_batched, the RK4 path through a member-batched RK4, each
 # member with its own parameters and period; the constants being
-# estimated are shared by every member.
+# estimated are shared by every member. Over a dp mesh (parallel/mesh.py)
+# each rank integrates its block of the members, and the loss, a mean
+# over the whole batch, and its gradient are summed over the ranks
+# before the update, as XLA's psum does for rmt_tpu's sharded batch.
 
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from torch.func import vmap
 
 from .. import config
 from ..models import homo
+from . import mesh as dp
 from ..solvers import fixed
 from ..solvers.implicit_diff import radau_fixed, radau_fixed_batched
 from ..solvers.radau import _Clock
@@ -138,17 +142,21 @@ class EstimationStep:
     """One SGD step over log-kinetic-constants (make_estimation_step)."""
 
     def __init__(self, spec, axes, target, param_names, n_steps, lr,
-                 integrator, device):
+                 integrator, device, mesh=None):
         if integrator not in ("rk4", "radau"):
             raise ValueError(f"unknown integrator {integrator!r}; "
                              "supported: 'rk4', 'radau'")
         self.spec, self.axes, self.n_steps, self.lr = spec, axes, n_steps, lr
         self.param_names = tuple(param_names)
         self.integrator = integrator
-        self.device = config.resolve_device(device)
-        self.target = torch.as_tensor(np.asarray(target, dtype=np.float64),
-                                      dtype=config.default_float(),
-                                      device=self.device)
+        self.mesh = mesh
+        self.device = dp.device_for(mesh, device)
+        target = torch.as_tensor(np.asarray(target, dtype=np.float64),
+                                 dtype=config.default_float())
+        # the loss is a mean over the whole batch, on every rank
+        self.b_total = target.shape[0]
+        self.target = (target.to(self.device) if mesh is None
+                       else dp.shard_rows(mesh, target))
         # build the RHS closure once, for every step
         self.rhs = homo.make_n2_rhs(spec)
 
@@ -156,7 +164,10 @@ class EstimationStep:
         """(loss, grads {name: 0-d}, outlet mole fractions (B, n_comp)) at
         theta_log {name: 0-d log-constant} over the sweep params. timings:
         an optional dict that gets the forward's split (Radau) and the
-        seconds of the backward pass ("backward")."""
+        seconds of the backward pass ("backward"). With a mesh, params
+        is this rank's share of the sweep (shard_batch); the loss and the
+        gradients are the whole batch's and the outlet mole fractions
+        every member's, on every rank."""
         dtype = self.target.dtype
         th = {k: torch.as_tensor(v, dtype=dtype, device=self.device)
               .detach().requires_grad_(k in self.param_names)
@@ -170,22 +181,36 @@ class EstimationStep:
             yf = simulate_n2_fixed(self.spec, params, theta, self.n_steps,
                                    axes=self.axes)
         mf = outlet_mole_fractions(self.spec, yf)
-        loss = torch.mean(torch.sum((mf - self.target) ** 2, dim=-1))
+        err = torch.sum((mf - self.target) ** 2, dim=-1)
+        # this rank's share of the whole batch's mean
+        loss = (torch.mean(err) if self.mesh is None
+                else torch.sum(err) / self.b_total)
         clock = _Clock(timings, self.device)
         wrt = [th[k] for k in self.param_names]
         g = torch.autograd.grad(loss, wrt)
         clock.lap("backward")
+        loss, mf = loss.detach(), mf.detach()
+        if self.mesh is not None:
+            # the loss and its gradient summed over the ranks in one
+            # exchange
+            total = dp.sum_across(self.mesh, torch.stack([loss, *g]))
+            loss, g = total[0], tuple(total[1:])
+            mf = dp.gather_members(self.mesh, mf)
         grads = {k: torch.zeros_like(v) for k, v in th.items()}
         grads.update(zip(self.param_names, g))
-        return loss.detach(), grads, mf.detach()
+        return loss, grads, mf
+
+    def update(self, theta_log, grads):
+        """theta_new: theta_log one step of lr down grads (value_and_grad's
+        gradients)."""
+        return {k: torch.as_tensor(theta_log[k], dtype=grads[k].dtype,
+                                   device=self.device)
+                - self.lr * grads[k] for k in theta_log}
 
     def __call__(self, theta_log, params):
         """(theta_new, loss): one step of lr down the gradient."""
         loss, grads, _ = self.value_and_grad(theta_log, params)
-        theta_new = {k: torch.as_tensor(theta_log[k], dtype=loss.dtype,
-                                        device=self.device)
-                     - self.lr * grads[k] for k in theta_log}
-        return theta_new, loss
+        return self.update(theta_log, grads), loss
 
 
 def make_estimation_step(
@@ -197,6 +222,7 @@ def make_estimation_step(
     lr: float = 1e-2,
     integrator: str = "rk4",    # "rk4" (short horizons) | "radau" (stiff)
     device=None,
+    mesh=None,
 ):
     """Build an SGD step over log-kinetic-constants.
 
@@ -210,6 +236,14 @@ def make_estimation_step(
     Returns step(theta, params_batch) -> (theta_new, loss); the step's
     value_and_grad(theta, params) also gives the gradients and the
     outlet mole fractions.
+
+    mesh (parallel.mesh.Mesh): the step takes this rank's share of the
+    sweep (shard_batch(mesh, params, axes)) and cuts the whole target
+    (B, n_comp) to the rank's rows itself; each rank's loss is its
+    members' sum over the whole batch's B, and the loss and gradients
+    are summed over the ranks before the update, so every rank returns
+    the same (theta_new, loss). rmt_tpu's function has no mesh keyword:
+    there the sharding rides on the arrays, and XLA inserts the sums.
     """
     return EstimationStep(spec, axes, target, param_names, n_steps, lr,
-                          integrator, device)
+                          integrator, device, mesh)

@@ -44,7 +44,11 @@
 # jax.lax.scan becomes a Python loop with one device-to-host read per
 # chunk of attempts, never one per attempt: the early-exit test (every
 # member finished) and, in Newton-Schulz mode, the cold-rescue test of
-# the refresh travel in the same transfer.
+# the refresh travel in the same transfer. Over a dp mesh
+# (parallel/mesh.py) that read carries both flags OR-ed over the ranks,
+# as rmt_tpu's one XLA program decides them for the whole batch: every
+# rank runs the same chunks and the same rescues, so n_jev and n_rescue
+# are the unsharded run's.
 #
 # The reference's tuning arguments are all here (rhs_noise, max_factor,
 # predict_stages, theta_target, newton_h_barrier), with its off-TPU
@@ -160,7 +164,7 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
                     max_factor: float | None = None,
                     predict_stages: bool = True,
                     theta_target: float | None = None,
-                    newton_h_barrier: bool = False):
+                    newton_h_barrier: bool = False, mesh=None):
     """Integrate a stiff ensemble dy/dt = f(t, y, *args) for every member.
 
     batched=True: f(t (B,), y (B, n)) -> (B, n) (and jac, f_cheap, if
@@ -209,6 +213,13 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     (Radau5's FACCON); newton_h_barrier=True caps regrowth below 0.8
     times the step of a member's last Newton failure, until the next
     Jacobian refresh lifts the cap.
+
+    mesh (parallel.mesh.Mesh): y0 holds this rank's members of a batch
+    sharded over a dp mesh; the chunk's early-exit and cold-rescue flags
+    are OR-ed over the ranks in its one host read, so every rank runs the
+    chunks and rescues of the whole batch (each member's result is the
+    one the unsharded run gives it; n_jev and n_rescue are the whole
+    batch's). The results stay this rank's.
 
     Returns (ys, stats) with ys (n_out, B, n), ys[0] == y0. With
     out_members (host int indices (P,)) only those members' trajectories
@@ -658,6 +669,16 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
     def alive(s):
         return torch.any(s["seg"] < n_out - 1)
 
+    def read_flags(*flags):
+        """The chunk's one host read of its flags, OR-ed over the mesh's
+        ranks."""
+        v = torch.stack(flags)
+        if mesh is None:
+            return v.tolist()
+        from ..parallel.mesh import any_across
+
+        return any_across(mesh, v)
+
     def ns_refresh_chunk(s):
         """Fresh dense Jacobian and re-converged preconditioners for the
         next chunk. Returns (J, P, rescued) or None once every member has
@@ -678,7 +699,7 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
         # at a later refresh: members whose certified residual says the
         # refresh failed are redone from the cold seed
         need = ~(rho_w < 0.5)
-        go, rescue = torch.stack([alive(s), torch.any(need)]).tolist()
+        go, rescue = read_flags(alive(s), torch.any(need))
         if not go:
             return None
         if rescue:
@@ -698,7 +719,7 @@ def odeint_ensemble(f, y0, ts, *, jac=None, jac_blocks=None, block=None,
         # early exit once every member has written its last segment
         st = s["stats"]
         if block is not None:
-            if not bool(alive(s)):
+            if not read_flags(alive(s))[0]:
                 break
             # refresh the Jacobian blocks once per chunk (bidiagonal:
             # member-last for the block kernels)

@@ -33,7 +33,11 @@ as f32x, ch4, f32; --b-f32x sets the f32x leg's members):
           its Jacobian in float64), B = 4096;
   f32_am  the f32 leg with the DSL's accurate-f32 switch on
           (kinetics/dsl.accurate_f32_math: the RHS kernel's accurate-math
-          variant), B = 4096.
+          variant), B = 4096;
+  batched_df32  the f32x options on the member-last df32 RHS
+          (batched_rhs=True, which takes no cheap sweeps), at the 64
+          probes alone (B = 64): its eager df32 chain takes about a
+          minute a call.
 bench.py's walk-down to smaller B after a crash is left out: an
 out-of-memory error is a failure here.
 
@@ -53,7 +57,7 @@ one reference PyREMOT N2 run committed in BENCH_r05.json: it was not
 measured on this host. Exits nonzero when a leg fails: a member that
 does not finish, a state that is not finite, an error over its bar
 (f32x, CH4, f64 and true 1e-6, full 3e-6, f32 and f32_am 5e-5,
-chip_smoke.py's bars) or an out-of-memory error. Without a CUDA card it exits nonzero.
+chip_smoke.py's bars; batched_df32 1.9473e-6, BATCHED_DF32_BAR) or an out-of-memory error. Without a CUDA card it exits nonzero.
 """
 
 import argparse
@@ -77,8 +81,13 @@ BASELINE = ("committed SciPy time (BENCH_r05.json), not measured on this "
 B_F32X = 131072          # bench.py's LEGS["f32x"]["b_total"]
 B_F32 = 4096             # bench.py's B
 CH4_ACC_B = 16
+# rmt_tpu's own run of the 64 probes errs by 9.7364e-07 with the
+# member-last df32 RHS at the f32x options (CPU,
+# scripts/jax_n2_modes_error.py batched_df32); as for "full"
+# (chip_smoke.FULL_BAR), the port's run is held to twice that
+BATCHED_DF32_BAR = 2 * 9.7364e-07
 BARS = {"f32x": 1e-6, "ch4": 1e-6, "f32": 5e-5, "f64": 1e-6, "true": 1e-6,
-        "full": FULL_BAR, "f32_am": 5e-5}
+        "full": FULL_BAR, "f32_am": 5e-5, "batched_df32": BATCHED_DF32_BAR}
 DEFAULT_LEGS = ("f32x", "ch4", "f32")
 
 
@@ -160,7 +169,7 @@ def main():
                     "time")
     ap.add_argument("--legs", nargs="+", default=list(DEFAULT_LEGS),
                     choices=("f32x", "ch4", "f32", "f64", "true", "full",
-                             "f32_am"),
+                             "f32_am", "batched_df32"),
                     help="the legs to run, in this order")
     ap.add_argument("--b-f32x", type=int, default=B_F32X,
                     help="the f32x leg's members (bench.py: 131072)")
@@ -185,6 +194,8 @@ def main():
         "full": ("dme", B_F32, dict(F32X, accurate_rates="full"), None,
                  False),
         "f32_am": ("dme", B_F32, F32, None, True),
+        "batched_df32": ("dme", 64, dict(F32X, batched_rhs=True,
+                                         cheap_sweeps=0), None, False),
     }
     legs, failed = {}, []
     for leg_name in args.legs:

@@ -71,8 +71,9 @@ float64, scripts/gen_models_ref.py):
              its default zNo 100 over 1e-3 s (n = 5,600; no reference:
              finite, mole fractions summing to 1 within 1e-6, temperatures
              within 400-1000 K), its attempts and LU factorisations (a
-             first and the instrumented call only); M13 over two chained
-             2.5 s runs against one 5 s run (m13_resume, 1e-6).
+             first and the instrumented call only); M13 on rmt_tpu's
+             test grid (zNo 8, rNo 5) over two chained 1.25 s runs
+             against one 2.5 s run (m13_resume, 1e-6).
 
 With --m13-sweep B: run_m13_sweep(engine="lockstep") at B members (M13
 at zNo 10, rNo 7, tNo 5; T0 = 523 + linspace(0, 8, B), models_ref.npz's
@@ -589,22 +590,32 @@ def dyn_split(torch, device, part):
     return acc
 
 
+# M13's chained resume on rmt_tpu's tests/test_m13.py grid, in intervals
+# of that test's length (it chains two 2.5 s runs of two intervals each;
+# here two runs of one interval each)
+RESUME_GRID = dict(zNo=8, rNo=5)
+RESUME_INTERVAL_S = 1.25
+
+
 def m13_resume(torch, device):
-    """M13 (zNo 10, rNo 7) over 5 s in four intervals, and the same as two
-    chained 2.5 s runs of two intervals (the first's checkpoint is the
-    second's resume-state), as rmt_tpu's tests/test_m13.py chains them:
-    the chained checkpoint's error (rel_floor; rel_err and the absolute
-    error recorded) against the single run's."""
+    """M13 on RESUME_GRID over two intervals of RESUME_INTERVAL_S in one
+    run, and the same as two chained runs of one interval each (the
+    first's checkpoint is the second's resume-state), as rmt_tpu's
+    tests/test_m13.py chains its runs: the chained checkpoint's error
+    (rel_floor; rel_err and the absolute error recorded) against the
+    single run's."""
     from rmt_tpu_torch import rmtExe
     from rmt_tpu_torch.cases import hetero_case
 
+    t_end = 2 * RESUME_INTERVAL_S
     wall, full = timed(torch, lambda: rmtExe(
-        hetero_case.dyn_model_input("M13", dict(tNo=4), 5.0),
+        hetero_case.dyn_model_input("M13", dict(RESUME_GRID, tNo=2), t_end),
         device=device))
     ck_full = full["resModel"]["checkpoint"]
     ck = None
     for _ in range(2):
-        mi = hetero_case.dyn_model_input("M13", dict(tNo=2), 2.5)
+        mi = hetero_case.dyn_model_input("M13", dict(RESUME_GRID, tNo=1),
+                                         RESUME_INTERVAL_S)
         if ck is not None:
             mi["resume-state"] = ck
         w, res = timed(torch, lambda: rmtExe(mi, device=device))
@@ -617,7 +628,7 @@ def m13_resume(torch, device):
                 rel_err_1e7=max(float(rel_err(a, b).max()) for a, b in pairs),
                 max_abs_err=max(float(np.abs(a - b).max()) for a, b in pairs),
                 bar=BAR_STEADY,
-                ok=bool(err <= BAR_STEADY and abs(ck["t"] - 5.0) < 1e-9))
+                ok=bool(err <= BAR_STEADY and abs(ck["t"] - t_end) < 1e-9))
 
 
 def m13_sweep_t0(b):

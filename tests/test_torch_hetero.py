@@ -26,7 +26,7 @@ from rmt_tpu.parallel import run_m14_sweep as j_run_m14_sweep
 from rmt_tpu_torch.cases import hetero_case, pb_case
 from rmt_tpu_torch.models import hetero as t_he
 from rmt_tpu_torch.models import homo as t_homo
-from rmt_tpu_torch.parallel import run_m14_sweep
+from rmt_tpu_torch.parallel import Mesh, run_m14_sweep
 from rmt_tpu_torch.solvers import newton
 from test_m14 import _m14_model_input
 from test_t3 import _t3_model_input
@@ -256,10 +256,12 @@ def test_m14_sweep_kinetic_override():
 
 
 def test_m14_sweep_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A sweep whose size the mesh does not divide raises ValueError (as
+    jax.device_put of a dp-sharded batch does), before any work."""
+    with pytest.raises(ValueError, match="not divisible"):
         run_m14_sweep(hetero_case.m14_model_input(z_no=10),
-                      {"T0": np.asarray([523.0])}, mesh=object(),
-                      device="cpu")
+                      {"T0": np.asarray([523.0])},
+                      mesh=Mesh(None, 0, 2, torch.device("cpu")))
 
 
 def test_root_batched_like_root_matches_root():

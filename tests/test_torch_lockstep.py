@@ -15,6 +15,7 @@ from dme_case import make_model_input
 from rmt_tpu.parallel import run_n2_ensemble_lockstep as j_run
 from rmt_tpu.solvers import stiff_ensemble as j_se
 from rmt_tpu_torch.cases.dme_case import make_model_input as t_input
+from rmt_tpu_torch.parallel import Mesh
 from rmt_tpu_torch.parallel import run_n2_ensemble_lockstep as t_run
 from rmt_tpu_torch.solvers import stiff_ensemble as t_se
 
@@ -134,7 +135,8 @@ def test_unported_options_raise():
     """Newton-Schulz mode (no exact_solve), microbatch, dense_output,
     accurate_rates True and "full" and batched_rhs are ported and no
     longer raise (tests/test_torch_n2_options.py holds them to rmt_tpu);
-    what is still left for later ports (mesh) does."""
+    neither does mesh (tests/test_torch_mesh.py), but mesh with microbatch
+    raises ValueError, as in rmt_tpu."""
     mi = t_input(model="N2", op_period=0.002)
     sweep = {"T0": T0}
     ys, st = t_run(mi, sweep, device="cpu", max_steps=8, j_every=8)
@@ -146,8 +148,9 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="shared period"):
         t_run(mi, {"opT": np.array([0.5, 0.6])}, device="cpu",
               exact_solve=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_run(mi, sweep, device="cpu", exact_solve=True, mesh=True)
+    mesh = Mesh(None, 0, 2, torch.device("cpu"))
+    with pytest.raises(ValueError, match="microbatch and mesh"):
+        t_run(mi, sweep, exact_solve=True, mesh=mesh, microbatch=1)
     ys, st = t_run(mi, sweep, device="cpu", max_steps=8, j_every=8,
                    microbatch=1, dense_output=True)
     assert tuple(ys.shape) == (6, 2, 140) and st.n_jev >= 4

@@ -25,7 +25,7 @@ from rmt_tpu.solvers import stiff_ensemble as j_se
 from rmt_tpu_torch.cases.dme_case import make_model_input as t_input
 from rmt_tpu_torch.convert import params_from_jax
 from rmt_tpu_torch.models import homo as thomo
-from rmt_tpu_torch.parallel import prepare_n2_ensemble
+from rmt_tpu_torch.parallel import Mesh, prepare_n2_ensemble
 from rmt_tpu_torch.parallel import run_n2_ensemble_lockstep as t_run
 from rmt_tpu_torch.parallel.ensemble import n2_mode_functions
 from rmt_tpu_torch.props import thermo as tthermo
@@ -352,7 +352,7 @@ def test_option_errors_match_jax(case):
 
 def test_port_only_option_errors():
     """The float64 mode takes no accurate_rates mode and no fused kernel;
-    mesh= raises NotImplementedError."""
+    mesh= with microbatch raises ValueError (rmt_tpu's error)."""
     mi, sweep = t_input(model="N2", op_period=PERIOD), {"T0": T0}
     with pytest.raises(ValueError, match="float32 states"):
         t_run(mi, sweep, device="cpu", dtype=torch.float64,
@@ -361,8 +361,9 @@ def test_port_only_option_errors():
         t_run(mi, sweep, device="cpu", dtype=torch.float64, fused_rhs=True)
     with pytest.raises(ValueError, match="unknown accurate_rates"):
         t_run(mi, sweep, device="cpu", accurate_rates="f64")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_run(mi, sweep, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="microbatch and mesh"):
+        t_run(mi, sweep, mesh=Mesh(None, 0, 2, torch.device("cpu")),
+              microbatch=1)
 
 
 # ---------------------------------------------------------------------------

@@ -53,8 +53,9 @@ def test_run_n2_ensemble_matches_jax(narrow, swept):
 
 def test_run_n2_ensemble_stats_and_refusals(narrow):
     """return_stats gives the integrator's per-member statistics (every
-    member finished); mesh sharding is not ported; without a device
-    argument the entry point wants the card."""
+    member finished); a mesh that is no parallel.mesh.Mesh raises
+    (tests/test_torch_mesh.py runs the sharded ensemble); without a
+    device argument the entry point wants the card."""
     sweep = {"T0": np.array([523.0, 526.0])}
     mi = dict(narrow, **{"operating-conditions": dict(
         narrow["operating-conditions"], period=0.05)})
@@ -62,7 +63,7 @@ def test_run_n2_ensemble_stats_and_refusals(narrow):
                                    return_stats=True, max_steps=2000)
     assert st.n_unreached.tolist() == [0, 0]
     assert (st.n_accepted > 0).all()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         t_par.run_n2_ensemble(narrow, sweep, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
