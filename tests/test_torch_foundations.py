@@ -15,6 +15,7 @@ import torch
 
 import ch4_case
 import dme_case
+from clock import CHILD_LIMIT_S
 from rmt_tpu import constants as jc
 from rmt_tpu.data import defaults as jdef
 from rmt_tpu.data import species as jsp
@@ -85,7 +86,8 @@ def test_import_is_jax_free():
               "m.startswith('rmt_tpu.'))\n"
               "assert not bad, bad\nprint(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=240)
+                         capture_output=True, text=True,
+                         timeout=CHILD_LIMIT_S)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "rmt_tpu_torch.parallel.ensemble" in mods
 

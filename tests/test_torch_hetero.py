@@ -1,15 +1,13 @@
 # The steady axial-dispersion and heterogeneous models of the port (M5 and
-# M14 in rmt_tpu_torch/models/hetero.py, T3 in models/homo.py), their
-# rmtExe runners and the M14 design sweep (parallel/ensemble.py::
-# run_m14_sweep) against rmt_tpu on the CPU in float64, on the inputs of
+# M14 in rmt_tpu_torch/models/hetero.py, T3 in models/homo.py) and their
+# rmtExe runners against rmt_tpu on the CPU in float64, on the inputs of
 # rmt_tpu's own tests (rmt_tpu_torch/cases/hetero_case.py, held equal to
 # tests/test_t3.py's and tests/test_m14.py's here): build_params and feed
 # scales key by key; the M5 RHS and the T3 and M14 residuals (uniform zNo
 # 10 and the two-zone mesh, M14 at ramp 1.0 and 0.25) on perturbed states
-# at 1e-10; rmtExe M5, T3 (both meshes) and M14 (zNo 10, rampList
-# [0.25, 0.5, 1.0], the two-zone mesh) within 1e-6 relative on every output
-# row; run_m14_sweep at B = 3 against rmt_tpu's sweep and the single run;
-# and root_batched's like_root mode against root.
+# at 1e-10; rmtExe M5 and T3 (both meshes) within 1e-6 relative on every
+# output row; and root_batched's like_root mode against root. rmtExe M14
+# and its design sweep: tests/test_torch_hetero_m14.py.
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,11 +20,9 @@ from rmt_tpu_torch import convert
 from rmt_tpu.models import hetero as j_he
 from rmt_tpu.models import homo as j_homo
 from rmt_tpu.ops import stencils as j_st
-from rmt_tpu.parallel import run_m14_sweep as j_run_m14_sweep
 from rmt_tpu_torch.cases import hetero_case, pb_case
 from rmt_tpu_torch.models import hetero as t_he
 from rmt_tpu_torch.models import homo as t_homo
-from rmt_tpu_torch.parallel import Mesh, run_m14_sweep
 from rmt_tpu_torch.solvers import newton
 from test_m14 import _m14_model_input
 from test_t3 import _t3_model_input
@@ -194,10 +190,6 @@ RMTEXE = {
     "M5": lambda: pb_case.flow_model_input("M5"),
     "T3": hetero_case.t3_model_input,
     "T3 two-zone": lambda: hetero_case.t3_model_input("refined"),
-    "M14 zNo 10": lambda: hetero_case.m14_model_input(z_no=10),
-    "M14 rampList": lambda: hetero_case.m14_model_input(
-        z_no=10, ramp_list=[0.25, 0.5, 1.0]),
-    "M14 two-zone": lambda: hetero_case.m14_model_input(mesh="refined"),
 }
 
 
@@ -208,60 +200,6 @@ def test_rmtexe_matches_jax(case):
     want = rmt_tpu.rmtExe(RMTEXE[case]())["resModel"]
     got = rmt_tpu_torch.rmtExe(RMTEXE[case](), device="cpu")["resModel"]
     _assert_results_close(got, want)
-
-
-def test_m14_iso_thermal_raises():
-    mi = hetero_case.m14_model_input(z_no=10)
-    mi["operating-conditions"]["process-type"] = "iso-thermal"
-    with pytest.raises(NotImplementedError, match="iso-thermal"):
-        rmt_tpu_torch.rmtExe(mi, device="cpu")
-
-
-@pytest.fixture(scope="module")
-def m14_single():
-    return rmt_tpu_torch.rmtExe(hetero_case.m14_model_input(z_no=10),
-                                device="cpu")["resModel"]
-
-
-def test_m14_sweep_matches_jax_and_single(m14_single):
-    """run_m14_sweep over T0, T0 + 10, T0 + 20 (zNo 10): every member
-    converged, equal to rmt_tpu's run_m14_sweep at 1e-6, member 0 within
-    1e-6 of the single rmtExe, and the hotter feed shifting the steady
-    state (rmt_tpu's tests/test_ensemble.py checks)."""
-    mi = hetero_case.m14_model_input(z_no=10)
-    T0 = float(mi["operating-conditions"]["temperature"])
-    sweep = np.asarray([T0, T0 + 10.0, T0 + 20.0])
-    timings = {}
-    got = run_m14_sweep(mi, {"T0": sweep}, device="cpu", timings=timings)
-    want = j_run_m14_sweep(mi, {"T0": jnp.asarray(sweep)})
-    assert got["states"].shape == (3, 7, 2, 10)
-    assert bool(got["converged"].all()), got["res_norm"]
-    assert set(timings) == {"jacobian", "lu", "newton", "other", "polish"}
-    np.testing.assert_allclose(got["states"].numpy(),
-                               np.asarray(want["states"]), rtol=1e-6)
-    c_max = float(np.max(np.asarray(mi["feed"]["concentration"])))
-    np.testing.assert_allclose(
-        got["states"][0, :6, 0].numpy() * c_max,
-        m14_single["dataPack"][0]["dataYCoGas"], rtol=1e-6, atol=1e-12)
-    assert float((got["states"][2] - got["states"][0]).abs().max()) > 1e-4
-
-
-def test_m14_sweep_kinetic_override():
-    """Kinetic constants are sweepable leaves: zeroing the methanol rate
-    constant K1 changes the converged profile."""
-    mi = hetero_case.m14_model_input(z_no=10)
-    out = run_m14_sweep(mi, {"K1": np.asarray([35.45, 1e-6])}, device="cpu")
-    assert bool(out["converged"].all())
-    assert float((out["states"][0] - out["states"][1]).abs().max()) > 1e-5
-
-
-def test_m14_sweep_refuses_a_mesh():
-    """A sweep whose size the mesh does not divide raises ValueError (as
-    jax.device_put of a dp-sharded batch does), before any work."""
-    with pytest.raises(ValueError, match="not divisible"):
-        run_m14_sweep(hetero_case.m14_model_input(z_no=10),
-                      {"T0": np.asarray([523.0])},
-                      mesh=Mesh(None, 0, 2, torch.device("cpu")))
 
 
 def test_root_batched_like_root_matches_root():

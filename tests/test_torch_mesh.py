@@ -35,6 +35,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from clock import CHILD_LIMIT_S
 from dme_case import make_model_input
 from rmt_tpu.models import homo as j_homo
 from rmt_tpu.parallel import batch_params as j_batch_params
@@ -52,7 +53,6 @@ from rmt_tpu_torch.models import homo as t_homo
 
 B = 4
 PHASES = dryrun.PHASES + dryrun.EXTRA_PHASES
-TIMEOUT_S = 600
 
 
 def _jax_references():
@@ -104,7 +104,7 @@ def launches(tmp_path_factory):
         ref = _jax_references()
     finally:
         for launch in (two, one):
-            launch.results(TIMEOUT_S)
+            launch.results(CHILD_LIMIT_S)
     return two, one, ref
 
 
@@ -112,7 +112,7 @@ def launches(tmp_path_factory):
 def runs(launches):
     """(two-rank results by rank, one-rank results, rmt_tpu's)."""
     two, one, ref = launches
-    return two.results(TIMEOUT_S), one.results(TIMEOUT_S)[0], ref
+    return two.results(CHILD_LIMIT_S), one.results(CHILD_LIMIT_S)[0], ref
 
 
 def test_dryrun_results_and_the_launch(launches, runs):

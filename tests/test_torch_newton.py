@@ -106,7 +106,7 @@ def test_root_batched_takes_a_jacobian_and_refuses_block_modes():
     """jac= replaces the default reverse-mode Jacobian (the same roots);
     the default equals the analytic Jacobian to 1e-12; a block= layout
     that does not tile the state is refused (the block modes themselves
-    are held in tests/test_torch_hetero_dyn.py)."""
+    are held in tests/test_torch_hetero_dyn_linalg.py)."""
     p, C, r = _system(3, seed=3)
     pt, Ct, rt = (torch.as_tensor(a) for a in (p, C, r))
     f_t = _residual(pt, Ct, rt)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from clock import CHILD_LIMIT_S
 from rmt_tpu.solvers import stiff_ensemble as j_se
 from rmt_tpu_torch.cases.dme_case import make_model_input as t_input
 from rmt_tpu_torch.ops import cuda_ns
@@ -61,7 +62,7 @@ def runs(tmp_path_factory):
     code = _CHILD.format(repo=REPO, tests=os.path.join(REPO, "tests"),
                          t0=[float(v) for v in T0], kw=F32, out=out)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=600)
+                       text=True, timeout=CHILD_LIMIT_S)
     assert r.returncode == 0, r.stdout + r.stderr
     with np.load(out) as z:
         ref = {k: z[k] for k in z.files}

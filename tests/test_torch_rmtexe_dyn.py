@@ -7,26 +7,15 @@
 # statistics equal; M13's chained checkpoint/resume equal to one run at
 # 1e-10 (rmt_tpu's tests/test_m13.py bar is 1e-6); a resume-state of
 # another grid raises.
-# The port's linear algebra runs on one thread here: the test workers
-# share the CPU, and an oversubscribed LU is tens of times slower.
 
 import numpy as np
 import pytest
-import torch
 
 from rmt_tpu import rmtExe as j_exe
 from rmt_tpu_torch import rmtExe as t_exe
 from rmt_tpu_torch.cases import hetero_case
 
 ROWS = ("dataYCon", "dataYTemp", "dataYs", "dataYCons", "dataYTemps")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _close(got, want, rtol=1e-10):

@@ -9,13 +9,11 @@
 # integrator truncation at rtol 1e-5), every member converged and no
 # output time unreached, and the refined mesh refused; the vmap engine's
 # member 0 equals the port's rmtExe M13 at its inlet temperature to 1e-9
-# (zNo 4, rNo 3, tNo 2 over 0.5 s). The port's linear algebra runs on one
-# thread here (the test workers share the CPU).
+# (zNo 4, rNo 3, tNo 2 over 0.5 s).
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from rmt_tpu.parallel import run_m13_sweep as j_run_m13_sweep
 from rmt_tpu_torch import rmtExe as t_exe
@@ -24,14 +22,6 @@ from rmt_tpu_torch.parallel import run_m13_sweep
 
 T0 = 523.0
 SWEEP = {"T0": np.asarray([T0, T0 + 8.0])}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def test_lockstep_engine_matches_jax():

@@ -7,9 +7,7 @@
 # sweep is jax.vmap of that run in rmt_tpu, and rmt_tpu's own M11 sweep
 # takes a quarter of an hour of CPU at this grid), the hotter member
 # differs, every member reaches its output times; M12's explicit shared y0
-# equals its default to 1e-12; a refined mesh raises for M10/M12. The
-# port's linear algebra runs on one thread here (the test workers share
-# the CPU).
+# equals its default to 1e-12; a refined mesh raises for M10/M12.
 
 import numpy as np
 import pytest
@@ -21,14 +19,6 @@ from rmt_tpu_torch.parallel import run_m10_sweep, run_m11_sweep, run_m12_sweep
 
 T0 = 523.0
 SWEEP = {"T0": np.asarray([T0, T0 + 8.0])}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _close(got, want, rtol=1e-9):
